@@ -7,8 +7,11 @@ functions that launch a Triton kernel), never ``jax`` or anything under
 ``operator_forge``.
 
 - ``demo``: the model (``DemoConfig``, ``init_params``, ``params_from_jax``,
-  ``forward``);
-- ``entry``: the driver entry point, the counterpart of
-  ``__graft_entry__.entry``;
-- ``kernels``: the hand-written Hopper kernels and their plain versions.
+  ``forward``, ``loss_fn``, ``value_and_grad``, ``train_step``);
+- ``entry``: the driver entry points, ``entry`` (the forward, the
+  counterpart of ``__graft_entry__.entry``) and ``train_entry`` (the SGD
+  step);
+- ``kernels``: the hand-written Hopper kernels and their plain versions;
+- ``trace_step``: where the train step's and the forward's time goes on
+  the card (``python -m operator_forge_torch.trace_step``).
 """

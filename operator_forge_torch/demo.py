@@ -1,14 +1,18 @@
-"""The demo transformer LM's forward pass in PyTorch.
+"""The demo transformer LM's forward pass, loss and SGD train step in
+PyTorch.
 
-Counterpart of ``operator_forge/tpu/demo.py`` lines 27-109.  Parameters
+Counterpart of ``operator_forge/tpu/demo.py`` lines 27-127.  Parameters
 keep the JAX layout: a dict ``{"embed", "unembed", "layers": [{"wqkv",
 "wo", "w1", "w2", "ln1", "ln2"}]}`` of f32 tensors with weights stored
 ``(in, out)``, so ``forward`` computes ``x @ w`` as the reference does and
 ``params_from_jax`` is a plain conversion.  Every cast point of the
 reference is kept: bf16 operands for every product with f32 results, and
-the attention, RMSNorm and GELU numerics of the kernels in ``kernels/``.
+the attention, RMSNorm, GELU and cross-entropy numerics of the kernels in
+``kernels/``, each an autograd ``Function`` whose backward is a kernel too.
 The kernels run where the tensors are: a CPU tensor takes the plain
-version, a CUDA tensor the hand-written kernel.
+version, a CUDA tensor the hand-written kernel.  The products, the residual
+adds, the embedding gather and the SGD update stay plain tensor code, as
+the reference leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from .kernels.attention import causal_attention
+from .kernels.cross_entropy import cross_entropy
 from .kernels.gelu import gelu_tanh
 from .kernels.rmsnorm import rmsnorm
 
@@ -82,23 +87,38 @@ def init_params(
     return params
 
 
+LAYER_KEYS = ("wqkv", "wo", "w1", "w2", "ln1", "ln2")
+
+
+def tree_map(fn, tree: dict, *rest: dict) -> dict:
+    """Apply ``fn`` leafwise over parameter dicts of one layout, as
+    ``jax.tree_util.tree_map`` does over the reference's pytree."""
+    trees = (tree, *rest)
+    return {
+        "embed": fn(*(t["embed"] for t in trees)),
+        "unembed": fn(*(t["unembed"] for t in trees)),
+        "layers": [
+            {name: fn(*(layer[name] for layer in layers)) for name in LAYER_KEYS}
+            for layers in zip(*(t["layers"] for t in trees))
+        ],
+    }
+
+
+def tree_leaves(tree: dict) -> list:
+    """The leaves of a parameter dict, in ``tree_map``'s order."""
+    return [tree["embed"], tree["unembed"],
+            *(layer[name] for layer in tree["layers"] for name in LAYER_KEYS)]
+
+
 def params_from_jax(tree: dict, device: str | torch.device = "cuda") -> dict:
     """Convert the reference's parameter pytree (leaves as numpy arrays,
     ``np.asarray`` of each JAX array) into this module's parameters.  Each
     array is copied: numpy views of JAX arrays are read-only."""
     device = resolve_device(device)
-
-    def tensor(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32, copy=True)).to(device)
-
-    return {
-        "embed": tensor(tree["embed"]),
-        "unembed": tensor(tree["unembed"]),
-        "layers": [
-            {name: tensor(layer[name]) for name in ("wqkv", "wo", "w1", "w2", "ln1", "ln2")}
-            for layer in tree["layers"]
-        ],
-    }
+    return tree_map(
+        lambda a: torch.from_numpy(np.array(a, dtype=np.float32, copy=True)).to(device),
+        tree,
+    )
 
 
 def _bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -126,3 +146,28 @@ def forward(params: dict, tokens: torch.Tensor, config: DemoConfig) -> torch.Ten
         x = x + _attention(_rmsnorm(x, layer["ln1"]), layer, config)
         x = x + _mlp(_rmsnorm(x, layer["ln2"]), layer)
     return _bf16_matmul(x, params["unembed"]).float()
+
+
+def loss_fn(params: dict, tokens: torch.Tensor, config: DemoConfig) -> torch.Tensor:
+    """Next-token cross entropy of token ids [batch, seq + 1]: an f32
+    scalar."""
+    logits = forward(params, tokens[:, :-1], config)
+    return cross_entropy(logits, tokens[:, 1:].contiguous())
+
+
+def value_and_grad(params: dict, tokens: torch.Tensor, config: DemoConfig) -> tuple:
+    """``(loss, grads)``, grads in the parameters' layout: the counterpart
+    of ``jax.value_and_grad(loss_fn)``, by autograd."""
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss = loss_fn(live, tokens, config)
+    grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
+    return loss.detach(), tree_map(lambda _: next(grads), live)
+
+
+def train_step(params: dict, tokens: torch.Tensor, config: DemoConfig) -> tuple:
+    """One SGD step; returns ``(new_params, loss)``.  The update is the
+    reference's ``p - lr * g`` (a product, then a difference: no fused
+    multiply-add), into new tensors."""
+    loss, grads = value_and_grad(params, tokens, config)
+    lr = config.learning_rate
+    return tree_map(lambda p, g: p.detach() - lr * g, params, grads), loss

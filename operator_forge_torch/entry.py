@@ -1,5 +1,7 @@
-"""Driver entry point of the port, the counterpart of
-``__graft_entry__.entry`` (``__graft_entry__.py:26-34``)."""
+"""Driver entry points of the port: ``entry``, the counterpart of
+``__graft_entry__.entry`` (``__graft_entry__.py:26-34``), and
+``train_entry``, the train step that the reference's dryruns run
+(``operator_forge/tpu/demo.py:121-127``)."""
 
 from __future__ import annotations
 
@@ -10,15 +12,45 @@ import torch
 from . import demo
 
 
-def entry(device: str | torch.device = "cuda", seed: int = 0):
-    """Return ``(fn, (params, tokens))``: the forward pass of
-    ``DemoConfig()`` with parameters and a token batch drawn from seeded
-    generators.  The default device is the card; with none present this
-    raises unless ``device="cpu"`` is asked for."""
-    config = demo.DemoConfig()
+def pin_numerics() -> None:
+    """Make the card's products accumulate in f32, as the reference's do:
+    no TF32 for f32 products, and no reduced-precision reduction inside
+    cuBLAS's bf16 products (PyTorch allows it by default).  Process-wide;
+    it changes nothing on the CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def _seeded(config: demo.DemoConfig, device, seed: int, seq_len: int):
+    """Parameters and a token batch [batch, seq_len] from seeded generators,
+    with the products pinned to f32 accumulation."""
     params = demo.init_params(config, torch.Generator().manual_seed(seed), device)
     tokens = torch.randint(
-        0, config.vocab, (config.batch, config.seq_len),
+        0, config.vocab, (config.batch, seq_len),
         generator=torch.Generator().manual_seed(seed + 1),
     ).to(device)
+    pin_numerics()
+    return params, tokens
+
+
+def entry(device: str | torch.device = "cuda", seed: int = 0):
+    """Return ``(fn, (params, tokens))``: the forward pass of
+    ``DemoConfig()`` with parameters and a token batch [8, 64] drawn from
+    seeded generators.  The default device is the card; with none present
+    this raises unless ``device="cpu"`` is asked for.  Pins the products to
+    f32 accumulation for the whole process (``pin_numerics``)."""
+    config = demo.DemoConfig()
+    params, tokens = _seeded(config, device, seed, config.seq_len)
     return partial(demo.forward, config=config), (params, tokens)
+
+
+def train_entry(device: str | torch.device = "cuda", seed: int = 0):
+    """Return ``(fn, (params, tokens))``: one SGD step of ``DemoConfig()``,
+    ``fn(params, tokens) -> (new_params, loss)``, with parameters and a
+    token batch [8, 65] (inputs and next-token targets) drawn from seeded
+    generators.  The default device is the card; with none present this
+    raises unless ``device="cpu"`` is asked for.  Pins the products to f32
+    accumulation for the whole process (``pin_numerics``)."""
+    config = demo.DemoConfig()
+    params, tokens = _seeded(config, device, seed, config.seq_len + 1)
+    return partial(demo.train_step, config=config), (params, tokens)

@@ -1,11 +1,13 @@
-"""Hand-written Hopper kernels of the forward pass, each beside its plain
-PyTorch version.
+"""Hand-written Hopper kernels of the forward pass and the train step,
+each beside its plain PyTorch version.
 
 Every wrapper dispatches on the device of the tensor it is given: a CPU
 tensor goes to the plain version, a CUDA tensor to the kernel (or the
-wrapper raises).  Each module keeps a plain integer ``launches`` that its
-wrapper raises by one per kernel launch, so a run can show that the main
-path went through the kernel.  Importing these modules needs neither
+wrapper raises).  Each module keeps plain integers ``launches`` (forward)
+and ``bwd_launches`` (backward) that its wrappers raise by one per call
+that launches the kernel (a call of two launches counts once), so a run
+can show that the main path went through the kernels.  Each module's
+autograd ``Function`` ties its forward and backward together.  Importing these modules needs neither
 ``triton`` nor ``nvcc``: both are reached only at the first launch.
 """
 

@@ -1,9 +1,12 @@
-"""Causal softmax attention: the CUDA kernel ``csrc/causal_attention.cu``
-and its plain version.
+"""Causal softmax attention: the CUDA kernels ``csrc/causal_attention.cu``
+(forward and backward) and their plain versions.
 
 Counterpart of ``operator_forge/tpu/demo.py::_attention`` lines 79-92: it
 takes the bf16 QKV product ``[b, s, 3d]`` and returns the bf16 attention
 output ``[b, s, d]`` with the heads merged, ready for the ``wo`` product.
+The backward takes that output's gradient and returns the gradient of the
+QKV product, with the cast points of JAX's autodiff of the same lines;
+``causal_attention`` ties the two together as an autograd ``Function``.
 """
 
 from __future__ import annotations
@@ -20,28 +23,57 @@ MAX_HEAD_DIM = 128
 MASK_FILL = -1e30  # finite, as in the reference: exp(MASK_FILL - max) == 0
 
 launches = 0
+bwd_launches = 0
+
+
+def _heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, s, d = t.shape
+    return t.reshape(b, s, n_heads, d // n_heads).transpose(1, 2)
+
+
+def _merge(t: torch.Tensor) -> torch.Tensor:
+    b, h, s, head_dim = t.shape
+    return t.transpose(1, 2).reshape(b, s, h * head_dim)
+
+
+def _softmax_ref(q, k):
+    """The f32 softmax ``y`` of the scaled, masked bf16 scores, the causal
+    mask and the divisor ``sqrt(head_dim)``."""
+    s, head_dim = q.shape[-2:]
+    scores = (q @ k.transpose(-1, -2)).float()
+    # a device tensor, not a Python float: CUDA turns division by a host
+    # scalar into multiplication by its inverse, which rounds differently
+    root = torch.tensor(head_dim, dtype=torch.float32, device=q.device).sqrt()
+    scores = scores / root
+    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    scores = torch.where(mask, scores, MASK_FILL)
+    unnormalized = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    return unnormalized / unnormalized.sum(dim=-1, keepdim=True), mask, root
 
 
 def causal_attention_ref(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
     """Plain PyTorch version with the reference's cast points."""
-    b, s, three_d = qkv.shape
-    d = three_d // 3
-    head_dim = d // n_heads
-    q, k, v = (
-        t.reshape(b, s, n_heads, head_dim).transpose(1, 2)
-        for t in qkv.split(d, dim=-1)
-    )
-    scores = (q @ k.transpose(-1, -2)).float()
-    # a device tensor, not a Python float: CUDA turns division by a host
-    # scalar into multiplication by its inverse, which rounds differently
-    root = torch.tensor(head_dim, dtype=torch.float32, device=qkv.device).sqrt()
-    scores = scores / root
-    mask = torch.ones(s, s, dtype=torch.bool, device=qkv.device).tril()
-    scores = torch.where(mask, scores, MASK_FILL)
-    unnormalized = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-    probs = unnormalized / unnormalized.sum(dim=-1, keepdim=True)
-    out = probs.to(torch.bfloat16) @ v
-    return out.transpose(1, 2).reshape(b, s, d)
+    q, k, v = (_heads(t, n_heads) for t in qkv.chunk(3, dim=-1))
+    probs, _, _ = _softmax_ref(q, k)
+    return _merge(probs.to(torch.bfloat16) @ v)
+
+
+def causal_attention_bwd_ref(
+    qkv: torch.Tensor, dout: torch.Tensor, n_heads: int
+) -> torch.Tensor:
+    """Plain PyTorch version of the backward: bf16 ``dqkv [b, s, 3d]`` from
+    bf16 ``dout [b, s, d]``, with the cast points of JAX's autodiff of
+    ``demo.py:86-92`` (``jax.nn.softmax``'s JVP is ``y * (x' - sum(y x'))``)."""
+    q, k, v = (_heads(t, n_heads) for t in qkv.chunk(3, dim=-1))
+    d_out = _heads(dout, n_heads)
+    y, mask, root = _softmax_ref(q, k)
+    d_v = y.to(torch.bfloat16).transpose(-1, -2) @ d_out
+    d_p = (d_out @ v.transpose(-1, -2)).float()
+    big_d = (y * d_p).sum(dim=-1, keepdim=True)
+    d_s = (torch.where(mask, y * (d_p - big_d), 0.0) / root).to(torch.bfloat16)
+    d_q = d_s @ k
+    d_k = d_s.transpose(-1, -2) @ q
+    return torch.cat([_merge(d_q), _merge(d_k), _merge(d_v)], dim=-1)
 
 
 def _check(qkv: torch.Tensor, n_heads: int) -> tuple[int, int, int]:
@@ -70,10 +102,16 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.causal_attention_bf16.restype = ctypes.c_int
+    lib.causal_attention_bwd_bf16.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    lib.causal_attention_bwd_bf16.restype = ctypes.c_int
     return lib
 
 
-def causal_attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
+def causal_attention_fwd(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
     """bf16 ``[b, s, 3d]`` -> bf16 ``[b, s, d]``: the plain version for a
     CPU tensor, the CUDA kernel for a CUDA tensor."""
     global launches
@@ -92,3 +130,61 @@ def causal_attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
     build.check(lib, status, "causal_attention")
     launches += 1
     return out
+
+
+def causal_attention_bwd(
+    qkv: torch.Tensor, dout: torch.Tensor, n_heads: int
+) -> torch.Tensor:
+    """bf16 ``qkv [b, s, 3d]`` and ``dout [b, s, d]`` -> bf16 ``dqkv
+    [b, s, 3d]``: the plain version for CPU tensors, the CUDA kernels (two
+    launches, counted once) for CUDA tensors."""
+    global bwd_launches
+    b, s, head_dim = _check(qkv, n_heads)
+    if dout.dtype != torch.bfloat16 or tuple(dout.shape) != (b, s, n_heads * head_dim):
+        raise ValueError(
+            f"causal_attention_bwd takes dout bf16 {(b, s, n_heads * head_dim)}, "
+            f"got {dout.dtype} {tuple(dout.shape)}"
+        )
+    if qkv.device.type == "cpu" and dout.device.type == "cpu":
+        return causal_attention_bwd_ref(qkv, dout, n_heads)
+    if (qkv.device.type != "cuda" or dout.device != qkv.device
+            or not qkv.is_contiguous() or not dout.is_contiguous()):
+        raise ValueError(
+            "causal_attention_bwd's kernel takes contiguous tensors on one CUDA device"
+        )
+    lib = _library()
+    dqkv = torch.empty_like(qkv)
+    # p and dS_bf of every (query, key <= query), handed between the launches
+    scratch = torch.empty(2, b, n_heads, s, s, dtype=torch.bfloat16, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        status = lib.causal_attention_bwd_bf16(
+            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), scratch[0].data_ptr(),
+            scratch[1].data_ptr(), b, s, n_heads, head_dim,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(lib, status, "causal_attention_bwd")
+    bwd_launches += 1
+    return dqkv
+
+
+class CausalAttention(torch.autograd.Function):
+    """``causal_attention_fwd`` with ``causal_attention_bwd`` as its
+    gradient; saves the QKV product."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
+        ctx.save_for_backward(qkv)
+        ctx.n_heads = n_heads
+        return causal_attention_fwd(qkv, n_heads)
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        (qkv,) = ctx.saved_tensors
+        return causal_attention_bwd(qkv, dout.contiguous(), ctx.n_heads), None
+
+
+def causal_attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Causal attention with a gradient: bf16 ``[b, s, 3d]`` -> bf16
+    ``[b, s, d]``, the forward kernel now and the backward kernel under
+    ``backward()`` (the plain versions for CPU tensors)."""
+    return CausalAttention.apply(qkv, n_heads)

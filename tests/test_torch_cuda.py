@@ -7,10 +7,19 @@ neither JAX nor the JAX package, so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import os
+import subprocess
+import sys
+
 import pytest
 import torch
 
+from operator_forge_torch import demo
+from operator_forge_torch.entry import train_entry
 from operator_forge_torch.kernels import attention, bf16_ulp, gelu, rmsnorm
+from operator_forge_torch.kernels import cross_entropy as ce
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 pytestmark = pytest.mark.cuda
 
@@ -69,3 +78,149 @@ def test_gelu_kernel_matches_plain(cuda, shape):
     want = gelu.gelu_tanh_ref(x).float()
     tol = bf16_ulp(want.abs().clamp_min(2.0**-8))
     assert bool(((got.float() - want).abs() <= tol).all())
+
+
+def _within_ulps(got, want, n):
+    tol = n * float(bf16_ulp(want.float().abs().max()))
+    return float((got.float() - want.float()).abs().max()) <= tol
+
+
+def _twice_equal(fn):
+    """Run ``fn`` twice on the same inputs: the results, and whether the
+    two are bit for bit the same (no atomics, sums in a fixed order)."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    return first, all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize(
+    "b, s, n_heads, head_dim",
+    [(8, 64, 4, 32), (8, 16, 2, 32), (2, 17, 3, 16), (3, 100, 1, 8), (1, 1024, 2, 128)],
+)
+def test_attention_bwd_kernel_matches_plain(cuda, b, s, n_heads, head_dim):
+    """dQ, dK and dV each within 2 bf16 ulps of its max magnitude: the
+    kernels sum in another order than cuBLAS before each bf16 rounding."""
+    d = n_heads * head_dim
+    qkv = _normal((b, s, 3 * d), 4, cuda).bfloat16()
+    dout = _normal((b, s, d), 5, cuda).bfloat16()
+    before = attention.bwd_launches
+    (got,), same = _twice_equal(lambda: attention.causal_attention_bwd(qkv, dout, n_heads))
+    assert attention.bwd_launches == before + 2 and same
+    want = attention.causal_attention_bwd_ref(qkv, dout, n_heads)
+    for part in range(3):
+        cols = slice(part * d, (part + 1) * d)
+        assert _within_ulps(got[..., cols], want[..., cols], 2)
+
+
+@pytest.mark.parametrize("shape", [(512, 128), (3, 5, 100), (7, 1000)])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape):
+    """dx and dgain within rtol 1e-5 and 1e-6 of each one's max: f32, sums
+    in another order."""
+    x = _normal(shape, 6, cuda, scale=3.0)
+    dy = _normal(shape, 7, cuda)
+    gain = _normal(shape[-1:], 8, cuda)
+    before = rmsnorm.bwd_launches
+    got, same = _twice_equal(lambda: rmsnorm.rmsnorm_bwd(x, gain, dy))
+    assert rmsnorm.bwd_launches == before + 2 and same
+    for g, w in zip(got, rmsnorm.rmsnorm_bwd_ref(x, gain, dy)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(512, 512), (1000,)])
+def test_gelu_bwd_kernel_matches_plain(cuda, shape):
+    """Within 1 bf16 ulp of max(|dx|, 2**-8): both round an f32 value once;
+    the slope cancels near its zero, where |dx| is small."""
+    x = _normal(shape, 9, cuda, scale=3.0).bfloat16()
+    dy = _normal(shape, 10, cuda).bfloat16()
+    before = gelu.bwd_launches
+    (got,), same = _twice_equal(lambda: gelu.gelu_tanh_bwd(x, dy))
+    assert gelu.bwd_launches == before + 2 and same
+    want = gelu.gelu_tanh_bwd_ref(x, dy).float()
+    assert bool(((got.float() - want).abs() <= bf16_ulp(want.abs().clamp_min(2.0**-8))).all())
+
+
+@pytest.mark.parametrize("rows, vocab", [((8, 64), 256), ((512,), 1000), ((3, 7), 1000)])
+def test_cross_entropy_kernels_match_plain(cuda, rows, vocab):
+    """The loss within rtol 1e-5 and dlogits within 1e-7: f32, with
+    ``exp`` and ``log`` of another rounding and sums in another order."""
+    logits = _normal((*rows, vocab), 11, cuda, scale=2.0)
+    targets = torch.randint(0, vocab, rows, generator=torch.Generator().manual_seed(12)).to(cuda)
+    grad = torch.tensor(0.75, device=cuda)
+    before = (ce.launches, ce.bwd_launches)
+    (loss, lse), same = _twice_equal(lambda: ce.cross_entropy_fwd(logits, targets))
+    (dlogits,), same_bwd = _twice_equal(lambda: ce.cross_entropy_bwd(logits, targets, lse, grad))
+    assert (ce.launches, ce.bwd_launches) == (before[0] + 2, before[1] + 2)
+    assert same and same_bwd
+    want_loss, want_lse = ce.cross_entropy_ref(logits, targets)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=0)
+    want = ce.cross_entropy_bwd_ref(logits, targets, want_lse, grad)
+    torch.testing.assert_close(dlogits, want, rtol=0, atol=1e-7)
+
+
+def test_autograd_functions_match_autograd_of_plain(cuda):
+    """Each kernel's autograd ``Function`` on the card against autograd of
+    its plain forward on the same CUDA tensors, with the tolerances above."""
+    qkv = _normal((2, 17, 144), 13, cuda).bfloat16()
+    dout = _normal((2, 17, 48), 14, cuda).bfloat16()
+    got, want = qkv.clone().requires_grad_(), qkv.clone().requires_grad_()
+    attention.causal_attention(got, 3).backward(dout)
+    attention.causal_attention_ref(want, 3).backward(dout)
+    assert _within_ulps(got.grad, want.grad, 2)
+
+    x, dy, gain = _normal((7, 100), 15, cuda), _normal((7, 100), 16, cuda), _normal((100,), 17, cuda)
+    gx, wx = x.clone().requires_grad_(), x.clone().requires_grad_()
+    gg, wg = gain.clone().requires_grad_(), gain.clone().requires_grad_()
+    rmsnorm.rmsnorm(gx, gg).backward(dy)
+    rmsnorm.rmsnorm_ref(wx, wg).backward(dy)
+    for g, w in ((gx.grad, wx.grad), (gg.grad, wg.grad)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6 * float(w.abs().max()))
+
+    h = _normal((64, 128), 18, cuda, scale=3.0).bfloat16()
+    dh = _normal((64, 128), 19, cuda).bfloat16()
+    gh, wh = h.clone().requires_grad_(), h.clone().requires_grad_()
+    gelu.gelu_tanh(gh).backward(dh)
+    gelu.gelu_tanh_ref(wh).backward(dh)
+    # autograd of the plain forward differentiates the tanh form (its
+    # 1 - tanh² cancels in f32): 1 bf16 ulp of max(|dx|, 2**-8) still holds
+    assert bool(((gh.grad.float() - wh.grad.float()).abs()
+                 <= bf16_ulp(wh.grad.float().abs().clamp_min(2.0**-8))).all())
+
+    logits = _normal((4, 9, 256), 20, cuda)
+    targets = torch.randint(0, 256, (4, 9), generator=torch.Generator().manual_seed(21)).to(cuda)
+    gl, wl = logits.clone().requires_grad_(), logits.clone().requires_grad_()
+    ce.cross_entropy(gl, targets).backward()
+    ce.cross_entropy_ref(wl, targets)[0].backward()
+    torch.testing.assert_close(gl.grad, wl.grad, rtol=0, atol=1e-7)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One step of ``train_entry()`` on the card against the same step on
+    the CPU (the plain versions): the loss within 5e-5 and each parameter
+    within lr x 4 bf16 ulps of its gradient's max |g| plus 1 f32 ulp."""
+    fn, (params, tokens) = train_entry()
+    config = demo.DemoConfig()
+    cpu_params = demo.tree_map(lambda t: t.cpu(), params)
+    new, loss = fn(params, tokens)
+    want_loss, grads = demo.value_and_grad(cpu_params, tokens.cpu(), config)
+    want_new, _ = fn(cpu_params, tokens.cpu())
+    assert abs(float(loss) - float(want_loss)) <= 5e-5
+    for n, w, p, g in zip(*map(demo.tree_leaves, (new, want_new, cpu_params, grads))):
+        tol = config.learning_rate * 4 * bf16_ulp(g.abs().max()) + (
+            torch.nextafter(p.abs(), torch.tensor(float("inf"))) - p.abs())
+        assert bool(((n.cpu() - w).abs() <= tol).all())
+
+
+def test_entry_pins_f32_accumulation_in_a_fresh_process(cuda):
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import torch\n"
+         "from operator_forge_torch.entry import entry\n"
+         "fn, args = entry()\n"
+         "m = torch.backends.cuda.matmul\n"
+         "assert not m.allow_bf16_reduced_precision_reduction and not m.allow_tf32\n"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr

@@ -104,7 +104,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys, operator_forge_torch, operator_forge_torch.demo, "
         "operator_forge_torch.entry, operator_forge_torch.kernels.attention, "
         "operator_forge_torch.kernels.build, operator_forge_torch.kernels.gelu, "
-        "operator_forge_torch.kernels.rmsnorm\n"
+        "operator_forge_torch.kernels.rmsnorm, operator_forge_torch.kernels.cross_entropy, "
+        "operator_forge_torch.trace_step\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'operator_forge')]\n"
         "assert not bad, bad"
     )
@@ -114,14 +115,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_kernel_modules_import_without_triton_or_nvcc():
     """``sys.modules['triton'] = None`` makes any ``import triton`` fail,
     and PATH and CUDA_HOME lead to no nvcc: the modules import, and the
-    CPU forward runs, all the same."""
+    CPU forward and train step run, all the same."""
     proc = _run(
         "import sys\n"
         "sys.modules['triton'] = None\n"
-        "from operator_forge_torch.kernels import attention, build, gelu, rmsnorm\n"
-        "from operator_forge_torch.entry import entry\n"
+        "from operator_forge_torch.kernels import attention, build, cross_entropy, gelu, rmsnorm\n"
+        "from operator_forge_torch.entry import entry, train_entry\n"
         "fn, args = entry(device='cpu')\n"
-        "assert fn(*args).shape == (8, 64, 256)\n",
+        "assert fn(*args).shape == (8, 64, 256)\n"
+        "fn, args = train_entry(device='cpu')\n"
+        "new, loss = fn(*args)\n"
+        "assert loss.shape == () and new['layers'][1]['w2'].shape == (512, 128)\n",
         PATH=os.path.dirname(sys.executable), CUDA_HOME=os.path.join(REPO, "no-cuda"),
     )
     assert proc.returncode == 0, proc.stderr
