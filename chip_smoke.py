@@ -43,7 +43,9 @@ import torch.nn.functional as F
 
 from operator_forge_torch import demo
 from operator_forge_torch.entry import entry, train_entry
-from operator_forge_torch.kernels import attention, bf16_ulp, build, gelu, rmsnorm
+from operator_forge_torch.kernels import (
+    attention, bf16_ulp, build, gelu, rmsnorm, run_twice, step_tolerance, within_ulps,
+)
 from operator_forge_torch.kernels import cross_entropy as ce
 
 # H100 SXM peaks (NVIDIA's data sheet, dense): device memory, the bf16
@@ -115,17 +117,6 @@ def read_counts() -> dict:
     return {name: getattr(module, counter) for name, (module, counter) in COUNTERS.items()}
 
 
-def tensors(result) -> tuple:
-    return result if isinstance(result, tuple) else (result,)
-
-
-def repeats_exactly(fn) -> bool:
-    """Two launches on the same inputs give the same bits."""
-    first, second = tensors(fn()), tensors(fn())
-    torch.cuda.synchronize()
-    return all(torch.equal(a, b) for a, b in zip(first, second))
-
-
 def bound(bytes_moved: int, flops: int, flop_per_s: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flop_per_s * 1e3
@@ -188,11 +179,6 @@ def main_path_inputs(config: demo.DemoConfig) -> dict:
         "cross_entropy": (normal(b, s, config.vocab, scale=2.0), targets,
                           torch.ones(()).cuda()),
     }
-
-
-def within_ulps(got: torch.Tensor, want: torch.Tensor, n: int) -> bool:
-    tol = n * float(bf16_ulp(want.float().abs().max()))
-    return float((got.float() - want.float()).abs().max()) <= tol
 
 
 def graph_of_grad(output, inputs, grad):
@@ -374,7 +360,7 @@ def phase_kernels(inputs: dict) -> list[dict]:
         if not row["ok"]:
             fail(f"{row['name']} disagrees with its plain version: max |err| "
                  f"{err:.3e}, tolerance {row['tolerance']}")
-        if not repeats_exactly(row["fn"]):
+        if not run_twice(row["fn"])[1]:
             fail(f"{row['name']}: two launches on the same inputs differ")
         # kernel, plain, plain, kernel: drift in the clocks hits both
         ms = [time_ms(row["fn"])]
@@ -495,8 +481,7 @@ def phase_train(config: demo.DemoConfig) -> dict:
     worst = 0.0
     leaves = zip(*map(demo.tree_leaves, (first, want_new, cpu_params, grads)))
     for i, (got, want, p, g) in enumerate(leaves):
-        f32_ulp = torch.nextafter(p.abs(), torch.tensor(math.inf)) - p.abs()
-        tol = config.learning_rate * 4 * bf16_ulp(g.abs().max()) + f32_ulp
+        tol = step_tolerance(p, g, config.learning_rate)
         err = (got.cpu() - want).abs()
         if not bool((err <= tol).all()):
             fail(f"first step's parameter leaf {i} differs from the CPU's by "

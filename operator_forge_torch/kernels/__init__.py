@@ -11,6 +11,8 @@ autograd ``Function`` ties its forward and backward together.  Importing these m
 ``triton`` nor ``nvcc``: both are reached only at the first launch.
 """
 
+import math
+
 import torch
 
 
@@ -20,3 +22,30 @@ def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
     checks are stated in these units."""
     e = torch.floor(torch.log2(t.detach().abs().float().clamp_min(2.0**-126)))
     return torch.exp2(e - 7)
+
+
+def within_ulps(got: torch.Tensor, want: torch.Tensor, n: int) -> bool:
+    """Whether ``got`` lies within ``n`` bf16 ulps of ``want``'s largest
+    magnitude everywhere."""
+    tol = n * float(bf16_ulp(want.float().abs().max()))
+    return float((got.float() - want.float()).abs().max()) <= tol
+
+
+def step_tolerance(p: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
+    """How far a parameter after one SGD step ``p - lr * g`` may lie from
+    the same step taken elsewhere (the CPU, the JAX reference): ``lr``
+    times 4 bf16 ulps of the gradient's max |g|, since every product rounds
+    to bf16 and sums in another order, plus 1 f32 ulp of |p| for the
+    rounding of the update."""
+    a = p.abs()
+    return lr * 4 * bf16_ulp(g.abs().max()) + (torch.nextafter(a, torch.full_like(a, math.inf)) - a)
+
+
+def run_twice(fn) -> tuple[tuple, bool]:
+    """Call ``fn`` twice on the same inputs: the first call's tensors, and
+    whether the two calls gave the same bits (no atomics, sums in a fixed
+    order)."""
+    first, second = fn(), fn()
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    return first, all(torch.equal(a, b) for a, b in zip(first, second))

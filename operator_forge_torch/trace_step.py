@@ -1,22 +1,22 @@
 """Where the time of the port's train step and forward goes on the card.
 
-    python -m operator_forge_torch.trace_step [--calls 20]
+    python -m operator_forge_torch.trace_step
 
 Runs ``train_entry()``'s SGD step and ``entry()``'s forward on the card,
 each call on the same parameters and tokens and ending in
-``torch.cuda.synchronize()``.  For each path it first times ``--calls``
-calls on the host's clock, then records as many under ``torch.profiler``,
-and prints one JSON line: the host's median time per call, the device's
-busy time per call (the union of the intervals of the CUDA kernels the
-profiler recorded), the device's idle share of the host's median, and the
-kernels ranked by device time per call.  It prints the card's name and
-power limit first.  It fails where there is no card, and where the
+``torch.cuda.synchronize()``.  For each path it first times ``CALLS``
+calls on the host's clock without the profiler, then times as many again
+under ``torch.profiler``, and prints one JSON line: the host's median time
+per call in each of the two runs, the device's busy time per call in the
+profiled run (the union of the intervals of the CUDA kernels the profiler
+recorded), the device's idle share of that same run's host median, and
+the kernels ranked by device time per call.  It prints the card's name
+and power limit first.  It fails where there is no card, and where the
 profiler records no device time.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import statistics
 import subprocess
@@ -27,12 +27,14 @@ from torch.autograd import DeviceType
 
 from .entry import entry, train_entry
 
+CALLS = 20
 TOP = 12
 
 
-def _host_ms(call, calls: int) -> float:
+def _host_ms(call) -> float:
+    """Median host time of ``CALLS`` calls, each ending in a synchronize."""
     times = []
-    for _ in range(calls):
+    for _ in range(CALLS):
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
@@ -50,16 +52,14 @@ def _busy_us(spans: list) -> float:
     return busy
 
 
-def profile(call, calls: int) -> dict:
+def profile(call) -> dict:
     for _ in range(3):  # warm: Triton's first launches, cuBLAS, the allocator
         call()
     torch.cuda.synchronize()
-    host_ms = _host_ms(call, calls)
+    host_ms = _host_ms(call)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(calls):
-            call()
-            torch.cuda.synchronize()
+        profiled_ms = _host_ms(call)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         raise RuntimeError("the profiler recorded no device time")
@@ -68,25 +68,23 @@ def profile(call, calls: int) -> dict:
         total = by_name.setdefault(e.name, [0.0, 0])
         total[0] += e.time_range.elapsed_us()
         total[1] += 1
-    busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / calls
+    busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / CALLS
     ranked = sorted(by_name.items(), key=lambda item: -item[1][0])
     return {
-        "calls": calls,
+        "calls": CALLS,
         "host_median_ms": host_ms,
+        "profiled_host_median_ms": profiled_ms,
         "device_busy_ms_per_call": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / host_ms,
-        "kernel_launches_per_call": len(kernels) / calls,
+        "device_idle_share": 1.0 - busy_ms / profiled_ms,
+        "kernel_launches_per_call": len(kernels) / CALLS,
         "top_kernels": [
-            {"name": name[:96], "ms_per_call": us / 1e3 / calls, "launches_per_call": n / calls}
+            {"name": name[:96], "ms_per_call": us / 1e3 / CALLS, "launches_per_call": n / CALLS}
             for name, (us, n) in ranked[:TOP]
         ],
     }
 
 
-def main(argv: list[str] | None = None) -> None:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--calls", type=int, default=20, help="calls timed and profiled per path")
-    args = parser.parse_args(argv)
+def main() -> None:
     step, (params, tokens) = train_entry()
     forward, (_, fwd_tokens) = entry()
     smi = subprocess.run(
@@ -94,8 +92,8 @@ def main(argv: list[str] | None = None) -> None:
         capture_output=True, text=True, timeout=60, check=True,
     )
     print(smi.stdout.strip().splitlines()[0])
-    print(json.dumps({"train_step": profile(lambda: step(params, tokens), args.calls)}))
-    print(json.dumps({"forward": profile(lambda: forward(params, fwd_tokens), args.calls)}))
+    print(json.dumps({"train_step": profile(lambda: step(params, tokens))}))
+    print(json.dumps({"forward": profile(lambda: forward(params, fwd_tokens))}))
 
 
 if __name__ == "__main__":

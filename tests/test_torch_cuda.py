@@ -16,7 +16,9 @@ import torch
 
 from operator_forge_torch import demo
 from operator_forge_torch.entry import train_entry
-from operator_forge_torch.kernels import attention, bf16_ulp, gelu, rmsnorm
+from operator_forge_torch.kernels import (
+    attention, bf16_ulp, gelu, rmsnorm, run_twice, step_tolerance, within_ulps,
+)
 from operator_forge_torch.kernels import cross_entropy as ce
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -80,21 +82,6 @@ def test_gelu_kernel_matches_plain(cuda, shape):
     assert bool(((got.float() - want).abs() <= tol).all())
 
 
-def _within_ulps(got, want, n):
-    tol = n * float(bf16_ulp(want.float().abs().max()))
-    return float((got.float() - want.float()).abs().max()) <= tol
-
-
-def _twice_equal(fn):
-    """Run ``fn`` twice on the same inputs: the results, and whether the
-    two are bit for bit the same (no atomics, sums in a fixed order)."""
-    first, second = fn(), fn()
-    torch.cuda.synchronize()
-    first = first if isinstance(first, tuple) else (first,)
-    second = second if isinstance(second, tuple) else (second,)
-    return first, all(torch.equal(a, b) for a, b in zip(first, second))
-
-
 @pytest.mark.parametrize(
     "b, s, n_heads, head_dim",
     [(8, 64, 4, 32), (8, 16, 2, 32), (2, 17, 3, 16), (3, 100, 1, 8), (1, 1024, 2, 128)],
@@ -106,12 +93,12 @@ def test_attention_bwd_kernel_matches_plain(cuda, b, s, n_heads, head_dim):
     qkv = _normal((b, s, 3 * d), 4, cuda).bfloat16()
     dout = _normal((b, s, d), 5, cuda).bfloat16()
     before = attention.bwd_launches
-    (got,), same = _twice_equal(lambda: attention.causal_attention_bwd(qkv, dout, n_heads))
+    (got,), same = run_twice(lambda: attention.causal_attention_bwd(qkv, dout, n_heads))
     assert attention.bwd_launches == before + 2 and same
     want = attention.causal_attention_bwd_ref(qkv, dout, n_heads)
     for part in range(3):
         cols = slice(part * d, (part + 1) * d)
-        assert _within_ulps(got[..., cols], want[..., cols], 2)
+        assert within_ulps(got[..., cols], want[..., cols], 2)
 
 
 @pytest.mark.parametrize("shape", [(512, 128), (3, 5, 100), (7, 1000)])
@@ -122,7 +109,7 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape):
     dy = _normal(shape, 7, cuda)
     gain = _normal(shape[-1:], 8, cuda)
     before = rmsnorm.bwd_launches
-    got, same = _twice_equal(lambda: rmsnorm.rmsnorm_bwd(x, gain, dy))
+    got, same = run_twice(lambda: rmsnorm.rmsnorm_bwd(x, gain, dy))
     assert rmsnorm.bwd_launches == before + 2 and same
     for g, w in zip(got, rmsnorm.rmsnorm_bwd_ref(x, gain, dy)):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6 * float(w.abs().max()))
@@ -135,7 +122,7 @@ def test_gelu_bwd_kernel_matches_plain(cuda, shape):
     x = _normal(shape, 9, cuda, scale=3.0).bfloat16()
     dy = _normal(shape, 10, cuda).bfloat16()
     before = gelu.bwd_launches
-    (got,), same = _twice_equal(lambda: gelu.gelu_tanh_bwd(x, dy))
+    (got,), same = run_twice(lambda: gelu.gelu_tanh_bwd(x, dy))
     assert gelu.bwd_launches == before + 2 and same
     want = gelu.gelu_tanh_bwd_ref(x, dy).float()
     assert bool(((got.float() - want).abs() <= bf16_ulp(want.abs().clamp_min(2.0**-8))).all())
@@ -149,8 +136,8 @@ def test_cross_entropy_kernels_match_plain(cuda, rows, vocab):
     targets = torch.randint(0, vocab, rows, generator=torch.Generator().manual_seed(12)).to(cuda)
     grad = torch.tensor(0.75, device=cuda)
     before = (ce.launches, ce.bwd_launches)
-    (loss, lse), same = _twice_equal(lambda: ce.cross_entropy_fwd(logits, targets))
-    (dlogits,), same_bwd = _twice_equal(lambda: ce.cross_entropy_bwd(logits, targets, lse, grad))
+    (loss, lse), same = run_twice(lambda: ce.cross_entropy_fwd(logits, targets))
+    (dlogits,), same_bwd = run_twice(lambda: ce.cross_entropy_bwd(logits, targets, lse, grad))
     assert (ce.launches, ce.bwd_launches) == (before[0] + 2, before[1] + 2)
     assert same and same_bwd
     want_loss, want_lse = ce.cross_entropy_ref(logits, targets)
@@ -168,7 +155,7 @@ def test_autograd_functions_match_autograd_of_plain(cuda):
     got, want = qkv.clone().requires_grad_(), qkv.clone().requires_grad_()
     attention.causal_attention(got, 3).backward(dout)
     attention.causal_attention_ref(want, 3).backward(dout)
-    assert _within_ulps(got.grad, want.grad, 2)
+    assert within_ulps(got.grad, want.grad, 2)
 
     x, dy, gain = _normal((7, 100), 15, cuda), _normal((7, 100), 16, cuda), _normal((100,), 17, cuda)
     gx, wx = x.clone().requires_grad_(), x.clone().requires_grad_()
@@ -208,9 +195,7 @@ def test_train_step_on_card_matches_cpu(cuda):
     want_new, _ = fn(cpu_params, tokens.cpu())
     assert abs(float(loss) - float(want_loss)) <= 5e-5
     for n, w, p, g in zip(*map(demo.tree_leaves, (new, want_new, cpu_params, grads))):
-        tol = config.learning_rate * 4 * bf16_ulp(g.abs().max()) + (
-            torch.nextafter(p.abs(), torch.tensor(float("inf"))) - p.abs())
-        assert bool(((n.cpu() - w).abs() <= tol).all())
+        assert bool(((n.cpu() - w).abs() <= step_tolerance(p, g, config.learning_rate)).all())
 
 
 def test_entry_pins_f32_accumulation_in_a_fresh_process(cuda):

@@ -14,7 +14,9 @@ import torch
 
 from operator_forge.tpu import demo as jdemo
 from operator_forge_torch import demo
-from operator_forge_torch.kernels import attention, bf16_ulp, gelu, rmsnorm
+from operator_forge_torch.kernels import (
+    attention, bf16_ulp, gelu, rmsnorm, run_twice, step_tolerance, within_ulps,
+)
 
 CONFIGS = {
     "test": dict(d_model=64, n_heads=2, n_layers=2, d_ff=128, seq_len=16, batch=8),
@@ -147,3 +149,27 @@ def test_bf16_ulp():
     t = torch.tensor([1.0, 1.5, 2.0, -3.0, 0.09, 0.0])
     want = torch.tensor([2.0**-7, 2.0**-7, 2.0**-6, 2.0**-6, 2.0**-11, 2.0**-133])
     assert torch.equal(bf16_ulp(t), want)
+
+
+def test_within_ulps():
+    want = torch.tensor([1.0, -3.0])  # the largest magnitude's bf16 ulp is 2**-6
+    got = want + torch.tensor([2 * 2.0**-6, 0.0])
+    assert within_ulps(got, want, 2) and not within_ulps(got, want, 1)
+    assert within_ulps(got.bfloat16(), want, 2)
+
+
+def test_step_tolerance():
+    """``lr`` x 4 bf16 ulps of max |g| plus 1 f32 ulp of each |p|."""
+    p = torch.tensor([1.0, -2.0, 0.0])
+    g = torch.tensor([0.5, -1.0, 0.25])
+    want = 0.01 * 4 * 2.0**-7 + torch.tensor([2.0**-23, 2.0**-22, 2.0**-149])
+    torch.testing.assert_close(step_tolerance(p, g, 0.01), want, rtol=1e-6, atol=0)
+
+
+def test_run_twice():
+    x = torch.arange(4.0)
+    (got,), same = run_twice(lambda: x * 2)
+    assert same and torch.equal(got, x * 2)
+    calls = []
+    (first, _), same = run_twice(lambda: (calls.append(1) or torch.tensor(len(calls)), x))
+    assert not same and int(first) == 1

@@ -23,7 +23,7 @@ import torch
 from operator_forge.tpu import demo as jdemo
 from operator_forge_torch import demo, trace_step
 from operator_forge_torch.entry import train_entry
-from operator_forge_torch.kernels import bf16_ulp
+from operator_forge_torch.kernels import bf16_ulp, step_tolerance
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = {
@@ -119,11 +119,11 @@ def test_one_step_matches_jax(reference_step):
     want, got = reference_step["want"], reference_step["got"]
     lr = reference_step["config"].learning_rate
     leaves = zip(demo.tree_leaves(got["new"]), demo.tree_leaves(want["new"]),
-                 demo.tree_leaves(reference_step["params"]), _grad_tolerances(want["grads"]))
-    for i, (n, w, p, tol) in enumerate(leaves):
-        f32_ulp = np.spacing(np.abs(p.numpy()))
-        err = np.abs(n.numpy() - w)
-        assert bool((err <= lr * tol + f32_ulp).all()), f"leaf {i}: max |err| {err.max():.3e}"
+                 demo.tree_leaves(reference_step["params"]), demo.tree_leaves(want["grads"]))
+    for i, (n, w, p, g) in enumerate(leaves):
+        err = (n - torch.tensor(w)).abs()
+        tol = step_tolerance(p, torch.tensor(g), lr)
+        assert bool((err <= tol).all()), f"leaf {i}: max |err| {float(err.max()):.3e}"
 
 
 def test_train_entry_on_cpu_runs():
@@ -146,7 +146,7 @@ def test_train_entry_without_a_card_raises(monkeypatch):
 def test_trace_step_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        trace_step.main(["--calls", "1"])
+        trace_step.main()
 
 
 def test_busy_time_is_the_union_of_kernel_intervals():
