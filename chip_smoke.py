@@ -11,11 +11,13 @@ Phases, each of which exits non-zero on a failed check:
       the reference accumulates;
   (b) build every kernel from the checkout's sources, print the seconds;
   (c) hold each kernel against its plain version at the main path's shapes
-      (the forward's and the train step's), require two launches on the
-      same inputs to agree bit for bit, and time the kernel, the plain
-      version and one PyTorch call that computes the same function (a
-      yardstick only: the port never calls it); print one JSON line per
-      kernel;
+      (the forward's, the train step's, the ring's block steps: every mask
+      case at three shapes for the ring step), require two launches on the
+      same inputs to agree bit for bit, and time the kernel eagerly and
+      from a CUDA graph, the plain version, and one PyTorch call that
+      computes the same function (a yardstick only: the port never calls
+      it), also from a CUDA graph where it can be captured; print one JSON
+      line per kernel;
   (d) serve requests: ``entry()``'s forward on seeded token batches, each
       checked against the same forward on the CPU (plain versions), with
       every kernel's launch count read around those calls; print the
@@ -24,8 +26,19 @@ Phases, each of which exits non-zero on a failed check:
       launch counts of every step read, a falling loss, and the first
       step's loss and parameters checked against the same step on the CPU;
       print the step's median time and tokens/s;
-  (f) print ``{"kernels": [...]}``, launches summed over (d) and (e), then,
-      last, the device line.
+  (f) open an NCCL process group of one rank (a ``file://`` rendezvous in
+      a temporary directory) for (g) and (h);
+  (g) ring attention: the 4-rank ring's schedule replayed in one process
+      (at step j rank r holds block (r - j) % 4, every block step through
+      the kernel), and the real ``ring_attention`` on the group of one,
+      each against ``dense_causal_attention``; the replay checks the
+      kernel and the merge, not NCCL;
+  (h) the sharded train step on the (1, 1) mesh at ``DemoConfig()``, 3
+      steps with per-step launch counts, the first against ``train_step``
+      on the same parameters and tokens; ``run_dryrun(1)`` in this process
+      and then ``entry.dryrun_multichip(1)``, which spawns its own rank;
+  (i) print ``{"kernels": [...]}``, launches summed over (d), (e), (g) and
+      (h), then, last, the device line.
 It imports nothing of JAX: the card's machine has none.
 """
 
@@ -33,20 +46,26 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.device_mesh import init_device_mesh
 
 from operator_forge_torch import demo
-from operator_forge_torch.entry import entry, train_entry
+from operator_forge_torch.entry import dryrun_multichip, entry, train_entry
 from operator_forge_torch.kernels import (
-    attention, bf16_ulp, build, gelu, rmsnorm, run_twice, step_tolerance, within_ulps,
+    attention, bf16_ulp, build, carry_close, gelu, rmsnorm, run_twice, step_tolerance,
+    within_ulps,
 )
 from operator_forge_torch.kernels import cross_entropy as ce
+from operator_forge_torch.kernels import ring_attention as ra
 
 # H100 SXM peaks (NVIDIA's data sheet, dense): device memory, the bf16
 # tensor cores, and f32 outside the tensor cores
@@ -55,6 +74,8 @@ BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 REQUESTS = 4
 TRAIN_STEPS = 10
+SHARDED_STEPS = 3
+RING_RANKS = 4
 # each wrapper's launch counter; the kernels line's cross_entropy sums the
 # forward's and the backward's
 COUNTERS = {
@@ -66,7 +87,14 @@ COUNTERS = {
     "gelu_tanh_bwd": (gelu, "bwd_launches"),
     "cross_entropy": (ce, "launches"),
     "cross_entropy_bwd": (ce, "bwd_launches"),
+    "ring_attention_step": (ra, "launches"),
 }
+# yardsticks that go through the autograd engine on a forward computed
+# outside the timed call: its backward nodes launch on the stream of their
+# forward, so the call cannot be captured on a graph's stream
+NOT_CAPTURED = ("the yardstick is a backward node of a forward run outside "
+                "the call; autograd launches it on the forward's stream, not "
+                "the capturing one")
 
 
 def fail(message: str) -> None:
@@ -212,6 +240,7 @@ def backward_rows(inputs: dict) -> list[dict]:
         plain=lambda: attention.causal_attention_bwd_ref(qkv, dout, n_heads),
         library=graph_of_grad(sdpa, (q, k, v),
                               dout.view(b, s, n_heads, hd).transpose(1, 2).contiguous()),
+        library_graph=NOT_CAPTURED,
         err=(got.float() - want.float()), tolerance="2 bf16 ulps of max|dq|, max|dk|, max|dv|",
         ok=all(within_ulps(g, w, 2) for g, w in parts),
         # read qkv and dout, write dqkv; five causal products (the score
@@ -233,6 +262,7 @@ def backward_rows(inputs: dict) -> list[dict]:
         plain=lambda: rmsnorm.rmsnorm_bwd_ref(x, gain, dy),
         library=graph_of_grad(F.rms_norm(xr, (x.shape[-1],), gr, eps=rmsnorm.EPS),
                               (xr, gr), dy),
+        library_graph=NOT_CAPTURED,
         err=torch.cat([(g - w).flatten() for g, w in zip(got, want)]),
         tolerance="rtol 1e-5, atol 1e-6 of max|dx| and of max|dgain|",
         ok=all(bool(((g - w).abs() <= 1e-6 * w.abs().max() + 1e-5 * w.abs()).all())
@@ -292,7 +322,87 @@ def backward_rows(inputs: dict) -> list[dict]:
     return rows
 
 
-def phase_kernels(inputs: dict) -> list[dict]:
+# (query block, visiting block, carry) of one ring step on rank 2 of a
+# 4-rank ring: the diagonal, an earlier block, a later (fully masked)
+# block, and the ring's first step from m = -inf
+RING_CASES = {
+    "diagonal": (2, 2, "seen"), "earlier": (2, 1, "seen"),
+    "later": (2, 3, "seen"), "first": (2, 2, "fresh"),
+}
+
+
+def ring_case(shape, dtype, case, g):
+    """q, k, v of one ring step on the card and its carry, fresh or after
+    the diagonal block of other keys (through the plain version)."""
+    q, k, v, k0, v0 = (torch.randn(shape, generator=g).cuda().to(dtype) for _ in range(5))
+    b, h, s, d = shape
+    carry = (torch.full((b, h, s, 1), -math.inf, device="cuda"),
+             torch.zeros(shape, device="cuda"), torch.zeros((b, h, s, 1), device="cuda"))
+    my, origin, kind = RING_CASES[case]
+    if kind == "seen":
+        carry = ra.ring_step_ref(q, k0, v0, *carry, my, my)
+    return (q, k, v), carry, my, origin
+
+
+def ring_row(config: demo.DemoConfig) -> dict:
+    """The ring's block step at every mask case, at the ring of
+    ``DemoConfig()``'s heads over seq 64 on 4 ranks, a longer block and a
+    ragged one (also in bf16): the carry within rtol and atol 2e-5 of the
+    plain version, the same bits from two launches, and a later block's
+    carry left bit for bit.  The line times the earlier block at the first
+    shape, each case's times go on a line of their own."""
+    g = torch.Generator().manual_seed(11)
+    first = (config.batch, config.n_heads, config.seq_len // RING_RANKS, config.head_dim)
+    shapes = [(first, torch.float32), ((1, config.n_heads, 256, config.head_dim), torch.float32),
+              ((2, 3, 17, 16), torch.float32), ((2, 3, 17, 16), torch.bfloat16)]
+    worst, cases = 0.0, {}
+    for shape, dtype in shapes:
+        for case in RING_CASES:
+            qkv, carry, my, origin = ring_case(shape, dtype, case, g)
+            want = ra.ring_step_ref(*qkv, *carry, my, origin)
+            got, same = run_twice(lambda: ra.ring_step(*qkv, *(t.clone() for t in carry), my, origin))
+            where = f"ring_attention_step {case} {tuple(shape)} {dtype}"
+            if not same:
+                fail(f"{where}: two launches on the same inputs differ")
+            if not all(carry_close(a, b) for a, b in zip(got, want)):
+                fail(f"{where} disagrees with its plain version beyond rtol and atol 2e-5")
+            if case == "later" and not all(torch.equal(a, b) for a, b in zip(got, carry)):
+                fail(f"{where}: a fully masked block changed the carry")
+            worst = max([worst] + [float((a - b).abs()[torch.isfinite(b)].max()) for a, b in zip(got, want)])
+            if shape == first:
+                scratch = [t.clone() for t in carry]
+                cases[case] = {
+                    "ms": time_ms(lambda: ra.ring_step(*qkv, *scratch, my, origin)),
+                    "graph_ms": graph_ms(lambda: ra.ring_step(*qkv, *scratch, my, origin)),
+                }
+    print(json.dumps({"ring_attention_step_cases": {"shape": list(first), **cases}}))
+
+    qkv, carry, my, origin = ring_case(first, torch.float32, "earlier", g)
+    scratch = [t.clone() for t in carry]
+    b, h, s, d = first
+    q, k, v = qkv
+    mask = torch.ones(s, s, dtype=torch.bool, device="cuda")  # an earlier block: every key
+    carry_bytes = sum(t.numel() * 4 for t in carry)
+    return dict(
+        name="ring_attention_step", route="cuda",
+        source="operator_forge_torch/csrc/ring_attention.cu",
+        replaces="operator_forge/tpu/demo.py:276",
+        fn=lambda: ra.ring_step(*qkv, *scratch, my, origin),
+        repeat=lambda: ra.ring_step(*qkv, *(t.clone() for t in carry), my, origin),
+        plain=lambda: ra.ring_step_ref(*qkv, *carry, my, origin),
+        library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+        err=torch.tensor([worst]),
+        tolerance="rtol and atol 2e-5 at every mask case; -inf in the same places; "
+                  "a later block keeps the carry's bits",
+        ok=True,
+        # read q, k, v and the carry, write the carry; per (query, key):
+        # the two f32 products (2 * 2 * d) and the scale, exp and sum
+        bound=bound(3 * q.numel() * 4 + 2 * carry_bytes, (4 * d + 4) * b * h * s * s,
+                    F32_FLOP_PER_S),
+    )
+
+
+def phase_kernels(inputs: dict, config: demo.DemoConfig) -> list[dict]:
     rows = []
 
     # attention: within 2 bf16 ulps of the output's magnitude (the kernel
@@ -353,6 +463,7 @@ def phase_kernels(inputs: dict) -> list[dict]:
         bound=bound(2 * h.numel() * 2, 10 * h.numel(), F32_FLOP_PER_S),
     ))
     rows += backward_rows(inputs)
+    rows.append(ring_row(config))
 
     out = []
     for row in rows:
@@ -360,7 +471,7 @@ def phase_kernels(inputs: dict) -> list[dict]:
         if not row["ok"]:
             fail(f"{row['name']} disagrees with its plain version: max |err| "
                  f"{err:.3e}, tolerance {row['tolerance']}")
-        if not run_twice(row["fn"])[1]:
+        if not run_twice(row.get("repeat", row["fn"]))[1]:
             fail(f"{row['name']}: two launches on the same inputs differ")
         # kernel, plain, plain, kernel: drift in the clocks hits both
         ms = [time_ms(row["fn"])]
@@ -376,6 +487,10 @@ def phase_kernels(inputs: dict) -> list[dict]:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": time_ms(row["library"]),
         }
+        if "library_graph" in row:
+            line.update(library_graph_ms=None, library_graph_note=row["library_graph"])
+        else:
+            line["library_graph_ms"] = graph_ms(row["library"])
         print(json.dumps(line))
         out.append(line)
     return out
@@ -437,18 +552,30 @@ def phase_serve(config: demo.DemoConfig) -> dict:
     return launches
 
 
+def step_launches(config: demo.DemoConfig) -> dict:
+    """Each kernel's launches in one train step (a backward of two or three
+    launches counts once)."""
+    return {
+        "causal_attention": config.n_layers, "causal_attention_bwd": config.n_layers,
+        "rmsnorm": 2 * config.n_layers, "rmsnorm_bwd": 2 * config.n_layers,
+        "gelu_tanh": config.n_layers, "gelu_tanh_bwd": config.n_layers,
+        "cross_entropy": 1, "cross_entropy_bwd": 1, "ring_attention_step": 0,
+    }
+
+
+def check_step_launches(before: dict, after: dict, per_step: dict, what: str) -> None:
+    for name, count in per_step.items():
+        if after[name] - before[name] != count:
+            fail(f"{what}: {name} launched {after[name] - before[name]} times, not {count}")
+
+
 def phase_train(config: demo.DemoConfig) -> dict:
     fn, (params, tokens) = train_entry()
     cpu_params = demo.tree_map(lambda t: t.cpu(), params)
     fn(params, tokens)  # warm the allocator and cuBLAS outside the count
     torch.cuda.synchronize()
 
-    per_step = {
-        "causal_attention": config.n_layers, "causal_attention_bwd": config.n_layers,
-        "rmsnorm": 2 * config.n_layers, "rmsnorm_bwd": 2 * config.n_layers,
-        "gelu_tanh": config.n_layers, "gelu_tanh_bwd": config.n_layers,
-        "cross_entropy": 1, "cross_entropy_bwd": 1,
-    }
+    per_step = step_launches(config)
     reset_counts()
     losses, times, first = [], [], None
     stepped = params
@@ -458,11 +585,7 @@ def phase_train(config: demo.DemoConfig) -> dict:
         stepped, loss = fn(stepped, tokens)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        after = read_counts()
-        for name, count in per_step.items():
-            if after[name] - before[name] != count:
-                fail(f"train step {step}: {name} launched {after[name] - before[name]} "
-                     f"times, not {count}")
+        check_step_launches(before, read_counts(), per_step, f"train step {step}")
         losses.append(float(loss))
         first = first or stepped
     launches = read_counts()
@@ -500,22 +623,151 @@ def phase_train(config: demo.DemoConfig) -> dict:
     return launches
 
 
+def replay_ring(q, k, v, n: int) -> torch.Tensor:
+    """The ``n``-rank ring's schedule in one process: at step j, rank r
+    holds block (r - j) % n, and every block step goes through the kernel;
+    then num / den per rank, the blocks joined along the sequence."""
+    b, h, seq, d = q.shape
+    s = seq // n
+    qs, ks, vs = ([c.contiguous() for c in t.chunk(n, dim=2)] for t in (q, k, v))
+    out = []
+    for r in range(n):
+        m = torch.full((b, h, s, 1), -math.inf, device=q.device)
+        num = torch.zeros((b, h, s, d), device=q.device)
+        den = torch.zeros((b, h, s, 1), device=q.device)
+        for j in range(n):
+            origin = (r - j) % n
+            ra.ring_step(qs[r], ks[origin], vs[origin], m, num, den, r, origin)
+        out.append(num / den)
+    return torch.cat(out, dim=2)
+
+
+def phase_ring(config: demo.DemoConfig) -> dict:
+    """The replayed 4-rank ring and the real ring on the group of one, at
+    [8, 4, 64, 32] (``DemoConfig()``'s batch, heads and head width at seq
+    64) and [1, 4, 1024, 32], against dense at rtol and atol 2e-5."""
+    g = torch.Generator().manual_seed(13)
+    shapes = [(config.batch, config.n_heads, config.seq_len, config.head_dim),
+              (1, config.n_heads, 1024, config.head_dim)]
+    inputs = [[torch.randn(shape, generator=g).cuda() for _ in range(3)] for shape in shapes]
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("seq",))
+    result, launches = {}, dict.fromkeys(COUNTERS, 0)
+    for what, run in (
+        (f"replayed {RING_RANKS}-rank ring", lambda q, k, v: replay_ring(q, k, v, RING_RANKS)),
+        ("ring_attention on an NCCL group of one", lambda q, k, v: demo.ring_attention(q, k, v, mesh, axis="seq")),
+    ):
+        reset_counts()
+        outs = [run(*qkv) for qkv in inputs]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        per_call = RING_RANKS * RING_RANKS if what.startswith("replayed") else 1
+        if counts["ring_attention_step"] != per_call * len(shapes):
+            fail(f"{what}: ring_attention_step launched {counts['ring_attention_step']} times, "
+                 f"not {per_call} per call")
+        errs = []
+        for qkv, out in zip(inputs, outs):
+            dense = demo.dense_causal_attention(*qkv)
+            if out.shape != dense.shape or not bool(torch.isfinite(out).all()):
+                fail(f"{what}: output shaped {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+            if not torch.allclose(out, dense, rtol=2e-5, atol=2e-5):
+                fail(f"{what} differs from dense attention by {float((out - dense).abs().max()):.3e}")
+            errs.append(float((out - dense).abs().max()))
+        result[what] = {"shapes": shapes, "launches": counts["ring_attention_step"],
+                        "max_abs_err_vs_dense": errs}
+        launches = {name: launches[name] + counts[name] for name in COUNTERS}
+    print(json.dumps({"ring": result}))
+    return launches
+
+
+def phase_shard(config: demo.DemoConfig) -> dict:
+    """``sharded_train_step`` on the (1, 1) mesh against ``train_step``,
+    then the dryrun in this process and through its entry point."""
+    fn, (params, tokens) = train_entry()
+    mesh = demo.make_mesh(1)
+    step = demo.sharded_train_step(mesh, config)
+    local = demo.shard_params(params, config, mesh)
+    step(local, tokens)  # warm the allocator and NCCL outside the count
+    torch.cuda.synchronize()
+
+    per_step = step_launches(config)
+    reset_counts()
+    stepped, times, losses, first = local, [], [], None
+    for i in range(SHARDED_STEPS):
+        before = read_counts()
+        t0 = time.perf_counter()
+        stepped, loss = step(stepped, tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check_step_launches(before, read_counts(), per_step, f"sharded step {i}")
+        losses.append(float(loss))
+        first = first or demo.gather_params(stepped, config, mesh)
+    launches = read_counts()
+
+    # the first step against train_step on the same card, parameters and
+    # tokens: the loss within 5e-5 and each leaf within step_tolerance;
+    # with one rank on each axis the collectives are identities
+    want_loss, grads = demo.value_and_grad(params, tokens, config)
+    want_new, _ = demo.train_step(params, tokens, config)
+    loss_err = abs(losses[0] - float(want_loss))
+    if loss_err > 5e-5:
+        fail(f"sharded step's loss {losses[0]} differs from train_step's {float(want_loss)}")
+    worst, same_bits = 0.0, losses[0] == float(want_loss)
+    for i, (got, want, p, g) in enumerate(zip(*map(demo.tree_leaves, (first, want_new, params, grads)))):
+        tol = step_tolerance(p, g, config.learning_rate)
+        err = (got - want).abs()
+        if not bool((err <= tol).all()):
+            fail(f"sharded step's parameter leaf {i} differs from train_step's by {float(err.max()):.3e}")
+        worst = max(worst, float((err / tol).max()))
+        same_bits = same_bits and torch.equal(got, want)
+
+    reset_counts()
+    dry_loss = demo.run_dryrun(1, device="cuda")
+    torch.cuda.synchronize()
+    dry_launches = read_counts()
+    if dry_launches["ring_attention_step"] != 1:
+        fail(f"run_dryrun(1) launched ring_attention_step {dry_launches['ring_attention_step']} times, not 1")
+    t0 = time.perf_counter()
+    entry_loss = dryrun_multichip(1)
+    entry_s = time.perf_counter() - t0
+    if not (math.isfinite(dry_loss) and math.isfinite(entry_loss)):
+        fail(f"dryrun losses {dry_loss}, {entry_loss}")
+    result = {
+        "mesh": list(mesh.mesh.shape), "steps": SHARDED_STEPS, "launches_per_step": per_step,
+        "loss_first": losses[0], "loss_err_vs_train_step": loss_err,
+        "param_err_vs_train_step_of_tolerance": worst, "bits_equal_train_step": same_bits,
+        "step_median_ms": statistics.median(times) * 1e3,
+        "run_dryrun_1_loss": dry_loss, "run_dryrun_1_launches": dry_launches,
+        "dryrun_multichip_1_loss": entry_loss, "dryrun_multichip_1_s": entry_s,
+    }
+    print(json.dumps({"shard": result}))
+    return {name: launches[name] + dry_launches[name] for name in COUNTERS}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
+    t_start = time.perf_counter()
     phase_card()
     config = demo.DemoConfig()
     inputs = main_path_inputs(config)
     phase_build(inputs)
-    kernels = phase_kernels(inputs)
-    served = phase_serve(config)
-    trained = phase_train(config)
-    total = {name: served[name] + trained[name] for name in COUNTERS}
+    kernels = phase_kernels(inputs, config)
+    paths = [phase_serve(config), phase_train(config)]
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "rendezvous"),
+                                rank=0, world_size=1)
+        try:
+            paths += [phase_ring(config), phase_shard(config)]
+        finally:
+            dist.destroy_process_group()
+    total = {name: sum(path[name] for path in paths) for name in COUNTERS}
     total["cross_entropy"] += total.pop("cross_entropy_bwd")
     for line in kernels:
         line["launches"] = total[line["name"]]
         if line["launches"] < 1:
             fail(f"{line['name']} was never launched on the main path")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,10 +7,16 @@ functions that launch a Triton kernel), never ``jax`` or anything under
 ``operator_forge``.
 
 - ``demo``: the model (``DemoConfig``, ``init_params``, ``params_from_jax``,
-  ``forward``, ``loss_fn``, ``value_and_grad``, ``train_step``);
+  ``forward``, ``loss_fn``, ``value_and_grad``, ``train_step``), its
+  sharding (``make_mesh``, ``param_specs``, ``shard_params``,
+  ``gather_params``, ``sharded_train_step``), ``run_dryrun``, and ring
+  attention (``ring_attention``, ``dense_causal_attention``);
 - ``entry``: the driver entry points, ``entry`` (the forward, the
-  counterpart of ``__graft_entry__.entry``) and ``train_entry`` (the SGD
-  step);
+  counterpart of ``__graft_entry__.entry``), ``train_entry`` (the SGD
+  step) and ``dryrun_multichip`` (the counterpart of
+  ``__graft_entry__.dryrun_multichip``);
+- ``ranks``: ``run_ranks``, a function run in spawned ranks of one
+  process group (NCCL on cards, gloo on the CPU);
 - ``kernels``: the hand-written Hopper kernels and their plain versions;
 - ``trace_step``: where the train step's and the forward's time goes on
   the card (``python -m operator_forge_torch.trace_step``).

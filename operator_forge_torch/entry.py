@@ -1,7 +1,9 @@
 """Driver entry points of the port: ``entry``, the counterpart of
-``__graft_entry__.entry`` (``__graft_entry__.py:26-34``), and
-``train_entry``, the train step that the reference's dryruns run
-(``operator_forge/tpu/demo.py:121-127``)."""
+``__graft_entry__.entry`` (``__graft_entry__.py:26-34``); ``train_entry``,
+the train step that the reference's dryruns run
+(``operator_forge/tpu/demo.py:121-127``); and ``dryrun_multichip``, the
+counterpart of ``__graft_entry__.dryrun_multichip``
+(``__graft_entry__.py:37-41``)."""
 
 from __future__ import annotations
 
@@ -9,7 +11,7 @@ from functools import partial
 
 import torch
 
-from . import demo
+from . import demo, ranks
 
 
 def pin_numerics() -> None:
@@ -54,3 +56,24 @@ def train_entry(device: str | torch.device = "cuda", seed: int = 0):
     config = demo.DemoConfig()
     params, tokens = _seeded(config, device, seed, config.seq_len + 1)
     return partial(demo.train_step, config=config), (params, tokens)
+
+
+def _dryrun_rank(n_devices: int, device_type: str) -> float:
+    pin_numerics()
+    return demo.run_dryrun(n_devices, device=device_type)
+
+
+def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda") -> float:
+    """Run ``demo.run_dryrun`` in ``n_devices`` spawned ranks: one sharded
+    (dp x tp, sequence-parallel inputs) train step on a ``(data, model)``
+    mesh, then ring attention over all ranks against the dense reference.
+    Returns the loss, after checking it is not NaN.  The default device is
+    the card, one card a rank on NCCL: this raises where there is no card
+    or fewer cards than ranks.  With ``device="cpu"`` the ranks run on
+    gloo.  A rank that fails, or that has not returned within
+    ``run_ranks``'s deadline, raises."""
+    device = demo.resolve_device(device)
+    loss = ranks.run_ranks(n_devices, _dryrun_rank, (n_devices, device.type), device.type)[0]
+    if loss != loss:
+        raise RuntimeError("the sharded train step's loss is NaN")
+    return loss

@@ -1,5 +1,5 @@
-"""Hand-written Hopper kernels of the forward pass and the train step,
-each beside its plain PyTorch version.
+"""Hand-written Hopper kernels of the forward pass, the train step and
+ring attention's block step, each beside its plain PyTorch version.
 
 Every wrapper dispatches on the device of the tensor it is given: a CPU
 tensor goes to the plain version, a CUDA tensor to the kernel (or the
@@ -49,3 +49,13 @@ def run_twice(fn) -> tuple[tuple, bool]:
     first = first if isinstance(first, tuple) else (first,)
     second = second if isinstance(second, tuple) else (second,)
     return first, all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def carry_close(got: torch.Tensor, want: torch.Tensor, tol: float = 2e-5) -> bool:
+    """Whether ``got`` lies within rtol and atol ``tol`` of ``want`` where
+    ``want`` is finite, with infinities in the same places: the check of a
+    ring step's carry, whose running max starts at ``-inf``."""
+    finite = torch.isfinite(want)
+    if not torch.equal(finite, torch.isfinite(got)) or not torch.equal(got[~finite], want[~finite]):
+        return False
+    return bool(((got - want).abs()[finite] <= tol + tol * want.abs()[finite]).all())

@@ -7,6 +7,7 @@ neither JAX nor the JAX package, so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import math
 import os
 import subprocess
 import sys
@@ -15,11 +16,12 @@ import pytest
 import torch
 
 from operator_forge_torch import demo
-from operator_forge_torch.entry import train_entry
+from operator_forge_torch.entry import dryrun_multichip, train_entry
 from operator_forge_torch.kernels import (
-    attention, bf16_ulp, gelu, rmsnorm, run_twice, step_tolerance, within_ulps,
+    attention, bf16_ulp, carry_close, gelu, rmsnorm, run_twice, step_tolerance, within_ulps,
 )
 from operator_forge_torch.kernels import cross_entropy as ce
+from operator_forge_torch.kernels import ring_attention as ra
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -209,3 +211,66 @@ def test_entry_pins_f32_accumulation_in_a_fresh_process(cuda):
         cwd=REPO, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+# (query block, visiting block, carry) of one step on rank 2 of a 4-rank
+# ring: the diagonal, an earlier block, a later (fully masked) block, and
+# the ring's first step from m = -inf
+RING_CASES = {
+    "diagonal": (2, 2, "seen"), "earlier": (2, 1, "seen"),
+    "later": (2, 3, "seen"), "first": (2, 2, "fresh"),
+}
+
+
+def ring_inputs(shape, case, device, dtype=torch.float32, seed=30):
+    """q, k, v of one ring step and a carry, fresh or after the diagonal
+    block of other keys (through the plain version)."""
+    q, k, v, k0, v0 = (_normal(shape, seed + i, device).to(dtype) for i in range(5))
+    b, h, s, d = shape
+    carry = (torch.full((b, h, s, 1), -math.inf, device=device),
+             torch.zeros(shape, device=device), torch.zeros((b, h, s, 1), device=device))
+    my, origin, kind = RING_CASES[case]
+    if kind == "seen":
+        carry = ra.ring_step_ref(q, k0, v0, *carry, my, my)
+    return (q, k, v, *carry), my, origin
+
+
+@pytest.mark.parametrize("case", sorted(RING_CASES))
+@pytest.mark.parametrize(
+    "shape, dtype",
+    [((8, 4, 16, 32), torch.float32), ((1, 4, 256, 32), torch.float32),
+     ((2, 3, 17, 16), torch.float32), ((2, 3, 17, 16), torch.bfloat16),
+     ((1, 2, 1024, 128), torch.float32)],
+)
+def test_ring_step_kernel_matches_plain(cuda, shape, dtype, case):
+    """The carry within rtol and atol 2e-5 of the plain version (f32 sums
+    in another order, exp of another rounding; -inf in the same places), one launch a
+    call, the same bits from two launches; a later block leaves the carry's
+    bits as they were."""
+    (q, k, v, *carry), my, origin = ring_inputs(shape, case, cuda, dtype)
+    want = ra.ring_step_ref(q, k, v, *carry, my, origin)
+
+    def step():
+        return ra.ring_step(q, k, v, *(t.clone() for t in carry), my, origin)
+
+    before = ra.launches
+    got, same = run_twice(step)
+    torch.cuda.synchronize()
+    assert ra.launches == before + 2 and same
+    for g, w in zip(got, want):
+        assert carry_close(g, w)
+    if case == "later":
+        assert all(torch.equal(g, c) for g, c in zip(got, carry))
+
+
+def test_dryrun_multichip_on_one_card(cuda):
+    loss = dryrun_multichip(1)
+    assert math.isfinite(loss) and abs(loss - math.log(256)) < 0.5
+
+
+def test_dryrun_multichip_with_more_ranks_than_cards_raises(cuda):
+    """NCCL takes one card a rank: two ranks on one card are refused
+    before any rank starts."""
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match=f"{n} ranks need {n} CUDA devices"):
+        dryrun_multichip(n)

@@ -105,6 +105,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "operator_forge_torch.entry, operator_forge_torch.kernels.attention, "
         "operator_forge_torch.kernels.build, operator_forge_torch.kernels.gelu, "
         "operator_forge_torch.kernels.rmsnorm, operator_forge_torch.kernels.cross_entropy, "
+        "operator_forge_torch.kernels.ring_attention, operator_forge_torch.ranks, "
         "operator_forge_torch.trace_step\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'operator_forge')]\n"
         "assert not bad, bad"
@@ -120,6 +121,7 @@ def test_kernel_modules_import_without_triton_or_nvcc():
         "import sys\n"
         "sys.modules['triton'] = None\n"
         "from operator_forge_torch.kernels import attention, build, cross_entropy, gelu, rmsnorm\n"
+        "from operator_forge_torch.kernels import ring_attention\n"
         "from operator_forge_torch.entry import entry, train_entry\n"
         "fn, args = entry(device='cpu')\n"
         "assert fn(*args).shape == (8, 64, 256)\n"

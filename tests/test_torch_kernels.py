@@ -6,6 +6,8 @@ it replaces.  The kernels themselves run only on the card
 (``tests/test_torch_cuda.py``).
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +17,7 @@ import torch
 from operator_forge.tpu import demo as jdemo
 from operator_forge_torch import demo
 from operator_forge_torch.kernels import (
-    attention, bf16_ulp, gelu, rmsnorm, run_twice, step_tolerance, within_ulps,
+    attention, bf16_ulp, carry_close, gelu, rmsnorm, run_twice, step_tolerance, within_ulps,
 )
 
 CONFIGS = {
@@ -173,3 +175,13 @@ def test_run_twice():
     calls = []
     (first, _), same = run_twice(lambda: (calls.append(1) or torch.tensor(len(calls)), x))
     assert not same and int(first) == 1
+
+
+def test_carry_close():
+    """rtol and atol 2e-5 where the plain value is finite, infinities in
+    the same places."""
+    want = torch.tensor([-math.inf, 1.0, 100.0])
+    assert carry_close(want + torch.tensor([0.0, 3e-5, 1e-3]), want)
+    assert not carry_close(want + torch.tensor([0.0, 5e-5, 0.0]), want)
+    assert not carry_close(torch.tensor([-1e30, 1.0, 100.0]), want)
+    assert not carry_close(torch.tensor([math.inf, 1.0, 100.0]), want)

@@ -1,0 +1,227 @@
+"""The port's ring attention (``operator_forge_torch.demo.ring_attention``,
+its block step ``kernels/ring_attention.py``), ``dense_causal_attention``
+and the multi-rank dryrun against the JAX reference
+(``operator_forge/tpu/demo.py:189-343``), on the CPU.
+
+Multi-rank runs are gloo process groups of spawned ranks
+(``operator_forge_torch.ranks.run_ranks``); the ranks run
+``tests/torch_ranks.py``, which imports no JAX.  Tolerances: the ring
+against JAX's ring within rtol and atol 2e-5, the reference's own bar
+(``test_tpu_demo.py:138-181``; measured 4.8e-7); one block step of the
+plain version against the reference's arithmetic within rtol 1e-5 and atol
+1e-6, f32 sums taken in another order.
+"""
+
+import math
+import operator
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh
+
+import torch_ranks
+from operator_forge.tpu import demo as jdemo
+from operator_forge_torch import demo, ranks
+from operator_forge_torch.entry import dryrun_multichip
+from operator_forge_torch.kernels import ring_attention as ra
+
+RANKS_TIMEOUT = 240
+
+
+def _jax_step(q, k_blk, v_blk, m, num, den, my, origin):
+    """One step of ``demo.py:279-295`` in JAX, transcribed."""
+    s, d = q.shape[-2:]
+    scale = 1.0 / jnp.sqrt(jnp.float32(d))
+    scores = jnp.einsum(
+        "bhqd,bhkd->bhqk", q.astype(jnp.float32), k_blk.astype(jnp.float32)
+    ) * scale
+    q_pos = my * s + jnp.arange(s)[:, None]
+    k_pos = origin * s + jnp.arange(s)[None, :]
+    scores = jnp.where(k_pos <= q_pos, scores, -jnp.inf)
+    block_max = jnp.max(scores, axis=-1, keepdims=True)
+    new_m = jnp.maximum(m, block_max)
+    shift = jnp.where(jnp.isinf(new_m), 0.0, new_m)
+    correction = jnp.exp(m - shift)
+    probs = jnp.exp(scores - shift)
+    num = num * correction + jnp.einsum(
+        "bhqk,bhkd->bhqd", probs, v_blk.astype(jnp.float32)
+    )
+    den = den * correction + jnp.sum(probs, axis=-1, keepdims=True)
+    return new_m, num, den
+
+
+# (query block, visiting block, carry): the mask cases of one step on rank
+# 2 of a 4-rank ring
+CASES = {
+    "diagonal": (2, 2, "seen"),
+    "earlier": (2, 1, "seen"),
+    "later": (2, 3, "seen"),
+    "first": (2, 2, "fresh"),
+}
+
+
+def _step_inputs(case, shape=(2, 3, 17, 16), seed=0):
+    """q, k, v of the step and a carry: fresh (``m = -inf``, zeros) or one
+    that has seen the diagonal block of other keys."""
+    rng = np.random.default_rng(seed)
+    q, k, v, k0, v0 = (rng.standard_normal(shape, dtype=np.float32) for _ in range(5))
+    my, origin, carry = CASES[case]
+    b, h, s, d = shape
+    fresh = (np.full((b, h, s, 1), -np.inf, np.float32), np.zeros(shape, np.float32),
+             np.zeros((b, h, s, 1), np.float32))
+    if carry == "fresh":
+        return (q, k, v, *fresh), my, origin
+    seen = tuple(np.asarray(t) for t in _jax_step(q, k0, v0, *fresh, my, my))
+    return (q, k, v, *seen), my, origin
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_ring_step_ref_matches_jax(case):
+    arrays, my, origin = _step_inputs(case)
+    want = [np.asarray(t) for t in _jax_step(*arrays, my, origin)]
+    got = ra.ring_step_ref(*(torch.tensor(a) for a in arrays), my, origin)
+    for name, g, w in zip(("m", "num", "den"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-6, err_msg=name)
+    if case == "later":
+        # every key masked: the carry comes back as it went in
+        for g, before in zip(got, arrays[3:]):
+            assert np.array_equal(g.numpy(), before)
+
+
+def test_ring_step_on_cpu_updates_the_carry_in_place():
+    arrays, my, origin = _step_inputs("earlier")
+    q, k, v, m, num, den = (torch.from_numpy(a.copy()) for a in arrays)
+    want = ra.ring_step_ref(q, k, v, m, num, den, my, origin)
+    before = ra.launches
+    out = ra.ring_step(q, k, v, m, num, den, my, origin)
+    assert ra.launches == before  # the plain version is no launch
+    assert all(o is t for o, t in zip(out, (m, num, den)))
+    assert all(torch.equal(t, w) for t, w in zip((m, num, den), want))
+
+
+def _bad(name):
+    q = torch.zeros(1, 2, 8, 4)
+    carry = [torch.zeros(1, 2, 8, 1), torch.zeros(1, 2, 8, 4), torch.zeros(1, 2, 8, 1)]
+    args = [q, q, q, *carry, 0, 0]
+    if name == "seq":
+        big = torch.zeros(1, 1, 1025, 4)
+        args = [big, big, big, torch.zeros(1, 1, 1025, 1), big, torch.zeros(1, 1, 1025, 1), 0, 0]
+    elif name == "head_dim":
+        big = torch.zeros(1, 1, 8, 129)
+        args = [big, big, big, torch.zeros(1, 1, 8, 1), big, torch.zeros(1, 1, 8, 1), 0, 0]
+    elif name == "dtype":
+        args[1] = q.bfloat16()
+    elif name == "carry":
+        args[5] = torch.zeros(1, 2, 8, 4)
+    elif name == "carry_dtype":
+        args[3] = carry[0].double()
+    elif name == "position":
+        args[7] = -1
+    return args
+
+
+@pytest.mark.parametrize("name", ["seq", "head_dim", "dtype", "carry", "carry_dtype", "position"])
+def test_ring_step_rejects_what_the_kernel_does_not_take(name):
+    with pytest.raises(ValueError):
+        ra.ring_step(*_bad(name))
+
+
+def test_replayed_ring_schedule_matches_dense():
+    """The 4-rank ring's schedule in one process: at step j rank r holds
+    block (r - j) % 4; each block step through ``ring_step``, then num /
+    den, against ``dense_causal_attention`` at rtol and atol 2e-5."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 2, 32, 16), dtype=np.float32)) for _ in range(3))
+    n = 4
+    qs, ks, vs = (t.chunk(n, dim=2) for t in (q, k, v))
+    out = []
+    for r in range(n):
+        m = torch.full((2, 2, 8, 1), -math.inf)
+        num, den = torch.zeros(2, 2, 8, 16), torch.zeros(2, 2, 8, 1)
+        for j in range(n):
+            origin = (r - j) % n
+            ra.ring_step(qs[r].contiguous(), ks[origin].contiguous(), vs[origin].contiguous(),
+                         m, num, den, r, origin)
+        out.append(num / den)
+    torch.testing.assert_close(torch.cat(out, dim=2), demo.dense_causal_attention(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+def test_dense_causal_attention_matches_jax(dtype):
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.standard_normal((2, 2, 32, 16), dtype=np.float32) for _ in range(3))
+    want = jdemo.dense_causal_attention(*(jnp.asarray(a, dtype) for a in (q, k, v)))
+    tq, tk, tv = (torch.tensor(np.asarray(jnp.asarray(a, dtype), np.float32)) for a in (q, k, v))
+    if dtype is jnp.bfloat16:
+        tq, tk, tv = tq.bfloat16(), tk.bfloat16(), tv.bfloat16()
+    got = demo.dense_causal_attention(tq, tk, tv)
+    assert got.dtype == tq.dtype
+    # f32: sums in another order; bf16: one rounding of such a value
+    tol = 2e-6 if dtype is np.float32 else 2 ** -7
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=tol, atol=tol)
+
+
+@pytest.fixture(scope="module")
+def ring_run():
+    """Ring attention in 4 gloo ranks, spawned once: the 4-rank ring at
+    [2, 2, 32, 16] and, on each rank, a 1-rank ring at [1, 2, 8, 8]."""
+    rng = np.random.default_rng(7)
+    q, k, v = (rng.standard_normal((2, 2, 32, 16), dtype=np.float32) for _ in range(3))
+    small = rng.standard_normal((1, 2, 8, 8), dtype=np.float32)
+    out = ranks.run_ranks(4, torch_ranks.ring, (q, k, v, small), "cpu", RANKS_TIMEOUT)
+    return dict(q=q, k=k, v=v, small=small, ringed=np.concatenate([o[0] for o in out], axis=2),
+                alone=[o[1] for o in out])
+
+
+def test_ring_attention_matches_jax_on_4_ranks(ring_run):
+    mesh = Mesh(np.asarray(jax.devices()[:4]), ("seq",))
+    want = jdemo.ring_attention(ring_run["q"], ring_run["k"], ring_run["v"], mesh, axis="seq")
+    np.testing.assert_allclose(ring_run["ringed"], np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_single_rank_ring_matches_jax(ring_run):
+    small = ring_run["small"]
+    mesh = Mesh(np.asarray(jax.devices()[:1]), ("seq",))
+    want = np.asarray(jdemo.ring_attention(small, small, small, mesh, axis="seq"))
+    for got in ring_run["alone"]:
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_dryrun_multichip_on_cpu_is_finite():
+    """8 gloo ranks: the (4, 2) mesh's sharded SP step and the 8-rank ring
+    against dense (which raises if it disagrees at 3e-5)."""
+    loss = dryrun_multichip(8, device="cpu")
+    assert math.isfinite(loss)
+    # near-uniform logits at init: loss ~= log(vocab)
+    assert abs(loss - math.log(256)) < 0.5
+
+
+def test_dryrun_multichip_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun_multichip(1)
+
+
+def test_run_ranks_needs_a_card_a_rank(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="2 ranks need 2 CUDA devices"):
+        ranks.run_ranks(2, operator.add, (1, 2), "cuda")
+
+
+def test_run_ranks_returns_values_and_raises_on_a_failed_rank():
+    assert ranks.run_ranks(2, operator.add, (1, 2), "cpu", RANKS_TIMEOUT) == [3, 3]
+    with pytest.raises(RuntimeError, match="exited with errors"):
+        ranks.run_ranks(2, operator.truediv, (1, 0), "cpu", RANKS_TIMEOUT)
+
+
+def test_run_ranks_ends_a_hung_rank_at_its_deadline():
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError):
+        ranks.run_ranks(2, time.sleep, (600,), "cpu", timeout=5)
+    assert time.monotonic() - t0 < 60

@@ -1,0 +1,77 @@
+"""What the port's multi-rank tests run in each spawned rank
+(``operator_forge_torch.ranks.run_ranks``).  It imports neither JAX nor
+the JAX package, since every rank imports it; inputs arrive and results
+leave as numpy arrays."""
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_fn
+from torch.distributed.device_mesh import init_device_mesh
+
+from operator_forge_torch import demo
+
+
+def _numpy(tree: dict) -> dict:
+    return demo.tree_map(lambda t: t.detach().numpy(), tree)
+
+
+def ring(q: np.ndarray, k: np.ndarray, v: np.ndarray, small: np.ndarray) -> tuple:
+    """This rank's output block of ring attention over all ranks on the
+    sequence blocks of ``q, k, v``, and ring attention of ``small`` on a
+    ring of one rank (a mesh dim of size 1)."""
+    n, rank = dist.get_world_size(), dist.get_rank()
+    mesh = init_device_mesh("cpu", (n,), mesh_dim_names=("seq",))
+
+    def mine(a):
+        return torch.from_numpy(a).chunk(n, dim=2)[rank].contiguous()
+
+    out = demo.ring_attention(mine(q), mine(k), mine(v), mesh, axis="seq")
+    alone = init_device_mesh("cpu", (n, 1), mesh_dim_names=("ranks", "seq"))
+    x = torch.from_numpy(small)
+    return out.numpy(), demo.ring_attention(x, x, x, alone, axis="seq").numpy()
+
+
+def megatron(group) -> dict:
+    """Forward values and gradients of the model-axis Functions on rank
+    ``r`` of ``group``: input ``x_r = (r + 1) * [1, 2, 3]`` and loss
+    ``sum(y * (r + 1))`` (for the gather, ``sum(y * arange)``)."""
+    r = dist.get_rank(group)
+    out = {}
+    for name, fn in (("copy", demo.CopyToModel.apply), ("reduce", demo.ReduceFromModel.apply),
+                     ("library_all_reduce", lambda x, g: dist_fn.all_reduce(x, group=g)),
+                     ("gather", demo.GatherFromModel.apply)):
+        x = ((r + 1) * torch.tensor([1.0, 2.0, 3.0])).requires_grad_()
+        y = fn(x, group)
+        weight = torch.arange(float(y.numel())) if name == "gather" else torch.tensor(r + 1.0)
+        (y * weight).sum().backward()
+        out[name] = (y.detach().numpy(), x.grad.numpy())
+    return out
+
+
+def sharded(cases: list) -> dict:
+    """On a ``make_mesh(world size)`` mesh: the mesh's layout, the
+    Functions on its model group, and for each case ``(config kwargs,
+    parameters as numpy, tokens [batch, tok_len], sequence_parallel)`` one
+    sharded step from those parameters on this rank's block of the tokens:
+    its loss, and on rank 0 the gathered new parameters."""
+    rank = dist.get_rank()
+    mesh = demo.make_mesh(dist.get_world_size(), "cpu")
+    data, model = mesh.size(0), mesh.size(1)
+    out = {
+        "mesh": (tuple(mesh.mesh.shape), mesh.mesh_dim_names,
+                 (mesh.get_local_rank("data"), mesh.get_local_rank("model"))),
+        "megatron": megatron(mesh.get_group("model")),
+        "steps": [],
+    }
+    for kwargs, tree, tokens, sequence_parallel in cases:
+        config = demo.DemoConfig(**kwargs)
+        local = demo.shard_params(demo.params_from_jax(tree, "cpu"), config, mesh)
+        block = torch.from_numpy(tokens).long().chunk(data)[mesh.get_local_rank("data")]
+        if sequence_parallel:
+            block = block.chunk(model, dim=1)[mesh.get_local_rank("model")]
+        step = demo.sharded_train_step(mesh, config, sequence_parallel)
+        new, loss = step(local, block.contiguous())
+        full = demo.gather_params(new, config, mesh)
+        out["steps"].append((float(loss), _numpy(full) if rank == 0 else None))
+    return out
