@@ -16,8 +16,9 @@ Phases, each of which exits non-zero on a failed check:
       same inputs to agree bit for bit, and time the kernel eagerly and
       from a CUDA graph, the plain version, and one PyTorch call that
       computes the same function (a yardstick only: the port never calls
-      it), also from a CUDA graph where it can be captured; print one JSON
-      line per kernel;
+      it; for a backward, PyTorch's backward op alone on its forward's
+      saved outputs), also from a CUDA graph; print one JSON line per
+      kernel;
   (d) serve requests: ``entry()``'s forward on seeded token batches, each
       checked against the same forward on the CPU (plain versions), with
       every kernel's launch count read around those calls; print the
@@ -89,14 +90,6 @@ COUNTERS = {
     "cross_entropy_bwd": (ce, "bwd_launches"),
     "ring_attention_step": (ra, "launches"),
 }
-# yardsticks that go through the autograd engine on a forward computed
-# outside the timed call: its backward nodes launch on the stream of their
-# forward, so the call cannot be captured on a graph's stream
-NOT_CAPTURED = ("the yardstick is a backward node of a forward run outside "
-                "the call; autograd launches it on the forward's stream, not "
-                "the capturing one")
-
-
 def fail(message: str) -> None:
     print(f"chip_smoke: FAILED: {message}", file=sys.stderr)
     sys.exit(1)
@@ -209,10 +202,29 @@ def main_path_inputs(config: demo.DemoConfig) -> dict:
     }
 
 
-def graph_of_grad(output, inputs, grad):
-    """One backward through autograd of a yardstick's forward, computed
-    once beforehand: only the backward runs in each timed call."""
-    return lambda: torch.autograd.grad(output, inputs, grad, retain_graph=True)
+def sdpa_backward(q, k, v, dout):
+    """SDPA's causal backward op alone, on the saved outputs of the forward
+    that SDPA picks for these inputs, run once here: (the backend's name,
+    a call that launches only the backward)."""
+    aten = torch.ops.aten
+    picked = F.scaled_dot_product_attention(
+        q.detach().requires_grad_(), k, v, is_causal=True).grad_fn.name()
+    if "Flash" in picked:
+        out, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = \
+            aten._scaled_dot_product_flash_attention(q, k, v, 0.0, True)
+        return picked, lambda: aten._scaled_dot_product_flash_attention_backward(
+            dout, q, k, v, out, lse, cum_q, cum_k, max_q, max_k, 0.0, True, seed, offset)
+    if "Efficient" in picked:
+        out, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+            q, k, v, None, True, 0.0, True)
+        return picked, lambda: aten._scaled_dot_product_efficient_attention_backward(
+            dout, q, k, v, None, out, lse, seed, offset, 0.0, [True, True, True, False], True)
+    if "Cudnn" in picked:
+        out, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = \
+            aten._scaled_dot_product_cudnn_attention(q, k, v, None, True, 0.0, True)
+        return picked, lambda: aten._scaled_dot_product_cudnn_attention_backward(
+            dout, q, k, v, out, lse, seed, offset, None, cum_q, cum_k, max_q, max_k, 0.0, True)
+    fail(f"SDPA picked {picked}, which has no backward op to time alone")
 
 
 def backward_rows(inputs: dict) -> list[dict]:
@@ -227,20 +239,18 @@ def backward_rows(inputs: dict) -> list[dict]:
     got = attention.causal_attention_bwd(qkv, dout, n_heads)
     want = attention.causal_attention_bwd_ref(qkv, dout, n_heads)
     parts = [(got[..., i * d:(i + 1) * d], want[..., i * d:(i + 1) * d]) for i in range(3)]
-    # SDPA's forward once on leaf copies of the heads; each timed call runs
-    # only its backward node, through the autograd engine
-    q, k, v = (t.detach().contiguous().requires_grad_()
-               for t in qkv.view(b, s, 3, n_heads, hd).permute(2, 0, 3, 1, 4))
-    sdpa = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    # the heads as SDPA takes them; its backward op timed alone
+    q, k, v = (t.contiguous() for t in qkv.view(b, s, 3, n_heads, hd).permute(2, 0, 3, 1, 4))
+    d_heads = dout.view(b, s, n_heads, hd).transpose(1, 2).contiguous()
+    picked, sdpa_bwd = sdpa_backward(q, k, v, d_heads)
+    print(json.dumps({"causal_attention_bwd_yardstick": picked}))
     rows.append(dict(
         name="causal_attention_bwd", route="cuda",
         source="operator_forge_torch/csrc/causal_attention.cu",
         replaces="operator_forge/tpu/demo.py:86",
         fn=lambda: attention.causal_attention_bwd(qkv, dout, n_heads),
         plain=lambda: attention.causal_attention_bwd_ref(qkv, dout, n_heads),
-        library=graph_of_grad(sdpa, (q, k, v),
-                              dout.view(b, s, n_heads, hd).transpose(1, 2).contiguous()),
-        library_graph=NOT_CAPTURED,
+        library=sdpa_bwd,
         err=(got.float() - want.float()), tolerance="2 bf16 ulps of max|dq|, max|dk|, max|dv|",
         ok=all(within_ulps(g, w, 2) for g, w in parts),
         # read qkv and dout, write dqkv; five causal products (the score
@@ -253,16 +263,16 @@ def backward_rows(inputs: dict) -> list[dict]:
     x, gain, dy = inputs["rmsnorm_bwd"]
     got = rmsnorm.rmsnorm_bwd(x, gain, dy)
     want = rmsnorm.rmsnorm_bwd_ref(x, gain, dy)
-    xr, gr = x.detach().requires_grad_(), gain.detach().requires_grad_()
+    # PyTorch's fused RMSNorm backward alone, on its forward's saved rstd
+    _, rstd = torch.ops.aten._fused_rms_norm(x, [x.shape[-1]], gain, rmsnorm.EPS)
     rows.append(dict(
         name="rmsnorm_bwd", route="triton",
         source="operator_forge_torch/kernels/rmsnorm.py",
         replaces="operator_forge/tpu/demo.py:71",
         fn=lambda: rmsnorm.rmsnorm_bwd(x, gain, dy),
         plain=lambda: rmsnorm.rmsnorm_bwd_ref(x, gain, dy),
-        library=graph_of_grad(F.rms_norm(xr, (x.shape[-1],), gr, eps=rmsnorm.EPS),
-                              (xr, gr), dy),
-        library_graph=NOT_CAPTURED,
+        library=lambda: torch.ops.aten._fused_rms_norm_backward(
+            dy, x, [x.shape[-1]], rstd, gain, [True, True]),
         err=torch.cat([(g - w).flatten() for g, w in zip(got, want)]),
         tolerance="rtol 1e-5, atol 1e-6 of max|dx| and of max|dgain|",
         ok=all(bool(((g - w).abs() <= 1e-6 * w.abs().max() + 1e-5 * w.abs()).all())
@@ -486,11 +496,8 @@ def phase_kernels(inputs: dict, config: demo.DemoConfig) -> list[dict]:
             "plain_ms": statistics.mean(plain_ms),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": time_ms(row["library"]),
+            "library_graph_ms": graph_ms(row["library"]),
         }
-        if "library_graph" in row:
-            line.update(library_graph_ms=None, library_graph_note=row["library_graph"])
-        else:
-            line["library_graph_ms"] = graph_ms(row["library"])
         print(json.dumps(line))
         out.append(line)
     return out

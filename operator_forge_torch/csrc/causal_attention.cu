@@ -1,5 +1,5 @@
 // Causal softmax attention of the demo LM, forward and backward, bf16 in
-// and out.
+// and out, on Hopper's tensor cores.
 //
 // Replaces: operator_forge/tpu/demo.py::_attention, lines 86-92 (scores,
 // scale, causal mask, softmax, @ v), which XLA fuses on the TPU, and its
@@ -8,14 +8,13 @@
 //
 // Forward numerics follow the reference's cast points:
 //   score = bf16(q . k)      f32 accumulation, one rounding, then f32
-//   score / sqrt(f32(head_dim)), a division; masked entries are -1e30
-//   y = exp(score - max) / sum          softmax in f32
-//   p = bf16(y)                          rounded once
-//   out = bf16(sum_j p_j v_j)            f32 accumulation, one rounding
-// A flash-style kernel that keeps the scores in f32 and normalises at the
-// end cannot reproduce the two bf16 roundings, so the forward takes two
-// passes over the keys: every score of a query tile first, then the
-// weighted sum of v with the rounded probabilities.
+//   score / sqrt(f32(head_dim)), an IEEE division; masked entries -1e30
+//   y = exp(score - max) / sum   max and sum over all of the row's keys
+//   p = bf16(y)                  rounded once
+//   out = bf16(sum_j p_j v_j)    f32 accumulation, one rounding
+// An online softmax that rescales partial sums rounds the sum differently
+// and cannot give the reference's p, so every row's max and sum are taken
+// over all its keys before any p.
 //
 // The backward follows JAX's autodiff of the same lines, with
 // jax.nn.softmax's custom JVP y * (x' - sum(y * x')):
@@ -26,358 +25,829 @@
 //        two roundings break
 //   dS_bf = bf16(where(mask, dS, 0) / sqrt(f32(head_dim))), a division
 //   dQ = bf16(dS_bf K),  dK = bf16(dS_bf^T Q)
-// Every product sums in f32 and rounds once.  Both directions recompute y
-// through the same device function, so the backward's y and p agree with
-// the forward's bit for bit.
 //
 // Bound on an H100 SXM at DemoConfig() (batch 8, seq 64, 4 heads of 32):
 // the forward reads the QKV product once (393,216 B) and writes the output
 // once (131,072 B), 0.52 MB: 0.16 us at 3.35 TB/s, against 8.5 MFLOP of
 // causal products, 0.01 us at the bf16 tensor rate.  The backward reads
 // QKV and dO and writes dQKV, 0.92 MB: 0.27 us, against 21 MFLOP of five
-// causal products (the score recompute, dP, dV, dQ, dK), 0.02 us.  All lie
-// far below the cost of one launch, so these first versions aim at exact
-// cast points with no extra copies; their time is set by the latency of
-// serial FMA chains at 4 warps per SM (PERF.md has the numbers).
+// causal products (the score recompute, dP, dV, dQ, dK), 0.02 us.  Both lie
+// far below one launch; what is left to win is latency: of the loads, of
+// the chains of products, and of the steps between them.
 //
-// Design: blocks of 128 threads over (tile of 16 rows, head, batch), 128
-// blocks at DemoConfig(), about one per SM.  q, k, v and dO are read out of
-// their [b, s, *] tensors through strides and every result is written
-// straight into [b, s, *], so the head split and merge cost no copies.
-// Rows are staged 64 at a time in shared memory as f32 rows padded to
-// head_dim + 1, so that a warp walking 32 rows hits 32 banks; only keys at
-// or before the tile's last query are read.  A query tile's scores stay in
-// shared memory (16 x seq floats, 64 KB at seq 1024).  The backward is two
-// launches with no atomics, so its sums run in a fixed order and repeat
-// bit for bit: the first, per query tile, computes y, dP, D and dS_bf,
-// writes dQ, and leaves p and dS_bf in a [b, h, s, s] bf16 scratch; the
-// second, per key tile, sums dK and dV over the queries in order.  Products
-// are f32 FMAs in serial chains; the tensor cores (mma, wgmma) and TMA are
-// left to a later version.
+// Design.  Every product is an mma.sync.aligned.m16n8k16 bf16 -> f32 on
+// the tensor cores.  A block is 4 warps over one tile of 16 rows (query
+// rows in the forward and the backward's first launch, key rows in its
+// second) of one (head, batch): 128 blocks at DemoConfig(), about one per
+// SM.  wgmma is not the tool at these shapes: its 64-row tile per (batch,
+// head) would keep 32 of 132 SMs busy, where 16-row tiles keep 128 busy,
+// and a 16-row tile is mma.sync's.  Each of the 4 warps takes 16 keys of
+// every 64 (or, in the second launch, every 4th query tile), so that 4
+// warps share an SM's latency; their partial row maxima, sums and
+// products are combined through shared memory in warp order.  q, k, v and
+// dO are read out of their [b, s, *] tensors through strides, and every
+// result is written straight into [b, s, *], so the head split and merge
+// cost no copies.  Tiles arrive in shared memory by 16-byte cp.async (or
+// element by element where head_dim is not a multiple of 8), as bf16 rows
+// padded with zeros to the next of 16, 32, 64 or 128 columns, plus 8 so
+// that ldmatrix hits 32 banks; operands come out by ldmatrix, and V, dO and
+// the backward's other row-major B operands by ldmatrix.trans.  The
+// forward keeps S = Q K^T in registers (a warp's 16 keys of a 16-row tile
+// are 2 n-tiles, 8 f32 a thread), takes the row max and sum there with
+// quad shuffles, and repacks the rounded p from the C fragment into the A
+// fragment of P V, so p never leaves registers.  Rows of more than 64 keys
+// go 64 keys at a time; each thread keeps its raw bf16 scores (exact) in
+// shared memory, 32 KB a block at seq 1024, and the softmax reads them
+// back.  Divisions are IEEE's without nvcc's branches (div_fast below).
+//
+// The backward is two launches with no atomics and no [b, h, s, s]
+// scratch, so its sums run in a fixed order and repeat bit for bit.  The
+// first, per query tile, recomputes the scores and the softmax with the
+// forward's own code, computes dP, D and dS_bf in registers, writes dQ and
+// each row's max, sum and D (three f32 [b, h, s] arrays).  The second, per
+// key tile, walks the query tiles in ascending order (a warp's next tile
+// of q and dO in flight while the current one is used), recomputes the
+// scores and dP with the same operands in the same roles and k-order, so
+// y = exp(score - max) / sum comes out with the first launch's bits,
+// stages its p and dS_bf tile in shared memory to transpose them, and sums
+// dK and dV in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kRows = 16;         // query (or key) rows per block
-constexpr int kKeys = 64;         // rows staged in shared memory at a time
-constexpr int kThreads = 128;
+using bf16 = __nv_bfloat16;
+
+constexpr int kRows = 16;        // rows of a tile: one mma row tile
+constexpr int kChunk = 64;       // keys a forward pass takes at a time
+constexpr int kWarps = 4;        // warps of a block
+constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxHeadDim = 128;
 constexpr int kMaxSeq = 1024;
-constexpr int kAcc = kRows * kMaxHeadDim / kThreads;  // outputs per thread
 constexpr float kMasked = -1e30f;  // the reference's finite mask fill
+
+// ---- PTX wrappers -------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d += a b: a 16x16 (row), b 16x8 (col), d 16x8, f32 accumulation
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16, lo in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float lo_of(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float hi_of(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// Division, exactly as IEEE's (the reference divides twice: the scores
+// by sqrt(head_dim), exp by the row sum).  nvcc's own division branches
+// to a called slow path for some operands, zeros among them; a branch per
+// entry breaks up the independent work of a fragment, and division then
+// takes most of these kernels' time (PERF.md has the numbers).  For a
+// divisor b in [1, 2^20] with inv = __frcp_rn(b), q = a inv corrected
+// once by its residual, which an FMA gives exactly, is the rounded
+// quotient while a is 0 or normal and a / b normal (Markstein's
+// theorem).  `divide` checks every numerator of a fragment array first
+// and divides them all without a branch when each is in that range, else
+// entry by entry.
+__device__ __forceinline__ bool quotient_in_range(float a) {
+  const float abs_a = fabsf(a);
+  return abs_a <= 0x1p96f && (abs_a >= 0x1p-96f || abs_a == 0.0f);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ float div_fast(float a, float b, float inv) {
+  const float q = __fmul_rn(a, inv);
+  return fmaf(fmaf(-q, b, a), inv, q);
 }
 
-// Stage rows [r0, r0 + n) of one head (src points at its first column)
-// into dst [n][ld] as f32.
-__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
-                                      size_t row_stride, int r0, int n,
-                                      int hd, int ld) {
-  for (int i = threadIdx.x; i < n * hd; i += kThreads) {
-    const int j = i / hd, c = i - j * hd;
-    dst[j * ld + c] = __bfloat162float(src[(size_t)(r0 + j) * row_stride + c]);
+// x[nt][i] /= b[i >> 1]: the divisor of the fragment's row g or g + 8
+__device__ __forceinline__ void divide(float (&x)[2][4], const float (&b)[2],
+                                       const float (&inv)[2]) {
+  bool fast = true;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) fast = fast & quotient_in_range(x[nt][i]);
+  if (fast) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[nt][i] = div_fast(x[nt][i], b[i >> 1], inv[i >> 1]);
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        x[nt][i] = quotient_in_range(x[nt][i]) ? div_fast(x[nt][i], b[i >> 1], inv[i >> 1])
+                                               : __fdiv_rn(x[nt][i], b[i >> 1]);
   }
 }
 
-// Stage a tile of kRows rows starting at r0, zero past the n that exist.
-__device__ __forceinline__ void load_tile(float* dst, const __nv_bfloat16* src,
-                                          size_t row_stride, int r0, int n,
-                                          int hd, int ld) {
-  for (int i = threadIdx.x; i < kRows * hd; i += kThreads) {
-    const int r = i / hd, c = i - r * hd;
-    dst[r * ld + c] =
-        r < n ? __bfloat162float(src[(size_t)(r0 + r) * row_stride + c]) : 0.0f;
-  }
+// reductions over the 4 threads of a quad, which share a fragment's row;
+// each step adds two values in either order, so all 4 get the same bits
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-// Softmax of query rows [q0, q0 + rows) (tile qs) against keys [0, n_keys)
-// of k_base into sc [kRows][s]: y in f32, or p = bf16(y) when kRound.
-// The forward and the backward both call this, so they see the same y.
-template <bool kRound>
-__device__ void softmax_tile(const __nv_bfloat16* k_base, size_t row_stride,
-                             const float* qs, float* kv, float* sc, int s,
-                             int hd, int ld, int q0, int rows, int n_keys) {
-  const int tid = threadIdx.x;
-  const float root = sqrtf((float)hd);
-  for (int k0 = 0; k0 < n_keys; k0 += kKeys) {
-    const int kn = min(kKeys, n_keys - k0);
-    __syncthreads();
-    stage(kv, k_base, row_stride, k0, kn, hd, ld);
-    __syncthreads();
-    for (int i = tid; i < kRows * kKeys; i += kThreads) {
-      const int r = i / kKeys, j = i - r * kKeys;
-      if (r >= rows || j >= kn) continue;
-      const int key = k0 + j;
-      float score = kMasked;
-      if (key <= q0 + r) {
-        const float* qr = qs + r * ld;
-        const float* kr = kv + j * ld;
-        float acc = 0.0f;
-        for (int c = 0; c < hd; ++c) acc = fmaf(qr[c], kr[c], acc);
-        score = round_bf16(acc) / root;
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ---- fragments ----------------------------------------------------------
+// In an m16n8 C fragment a thread (lane = 4 g + t) holds c[i] at row
+// g + 8 (i >> 1), column 2 t + (i & 1).
+
+__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+__device__ __forceinline__ int frag_row(int i) { return (lane_id() >> 2) + 8 * (i >> 1); }
+__device__ __forceinline__ int frag_col(int i) { return 2 * (lane_id() & 3) + (i & 1); }
+
+// Row stride, in elements, of a staged tile with kHdp columns: 16 bytes
+// over a multiple of 32, so the 8 rows an ldmatrix reads hit 32 banks.
+template <int kHdp>
+__host__ __device__ constexpr int ld_of() { return kHdp + 8; }
+
+// Stage rows [r0, r0 + n) of one head (src at its first column, row stride
+// `stride` elements) into dst [rows_pad][ld] bf16: 16-byte cp.async where
+// vec (head_dim a multiple of 8, 16-byte aligned rows), else element by
+// element; zeros in columns [hd, kHdp) and rows [n, rows_pad).  Thread
+// `tid` of the kStagers threads that stage; the caller commits the
+// cp.async group.
+template <int kHdp, int kStagers>
+__device__ __forceinline__ void stage(bf16* dst, const bf16* src, size_t stride, int r0,
+                                      int n, int rows_pad, int hd, bool vec, int tid) {
+  constexpr int ld = ld_of<kHdp>();
+  if (vec) {
+    constexpr int kPerRow = kHdp / 8;
+    for (int i = tid; i < rows_pad * kPerRow; i += kStagers) {
+      const int r = i / kPerRow, c = (i - r * kPerRow) * 8;
+      bf16* d = dst + r * ld + c;
+      if (r < n && c < hd) {
+        cp_async16(d, src + (size_t)(r0 + r) * stride + c);
+      } else {
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
       }
-      sc[r * s + key] = score;
     }
+  } else {
+    for (int i = tid; i < rows_pad * kHdp; i += kStagers) {
+      const int r = i / kHdp, c = i - r * kHdp;
+      dst[r * ld + c] = (r < n && c < hd) ? src[(size_t)(r0 + r) * stride + c]
+                                          : __float2bfloat16(0.0f);
+    }
+  }
+}
+
+__device__ __forceinline__ int round16(int n) { return (n + 15) & ~15; }
+
+// acc = A B^T over kHdp, 16 x 16 in two n-tiles: A the warp's 16 rows at
+// a, B 16 rows at b (both row-major, ld), as the "col" operand; 0 unless
+// live.  The k-steps run in ascending order from a zero accumulator, so a
+// product of the same rows gives the same bits wherever it runs.
+template <int kHdp>
+__device__ __forceinline__ void product_abt(float (&acc)[2][4], const bf16* a, const bf16* b,
+                                            bool live) {
+  constexpr int ld = ld_of<kHdp>();
+  const int lane = lane_id();
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+  if (!live) return;
+#pragma unroll
+  for (int kk = 0; kk < kHdp; kk += 16) {
+    uint32_t af[4], bf[4];
+    ldsm_x4(af, a + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + kk + (lane >> 4) * 8);
+    ldsm_x4(bf, b + ((lane & 7) + (lane >> 4) * 8) * ld + kk + ((lane >> 3) & 1) * 8);
+    mma(acc[0], af, bf[0], bf[1]);
+    mma(acc[1], af, bf[2], bf[3]);
+  }
+}
+
+// out[kHdp / 8 n-tiles] += A B for one k-step of 16: A a 16-row fragment
+// in registers, B rows [k0, k0 + 16) of b (row-major [k][n], ld), read by
+// ldmatrix.trans.
+template <int kHdp>
+__device__ __forceinline__ void product_ab(float (&out)[kHdp / 8][4], const uint32_t (&a)[4],
+                                           const bf16* b, int k0) {
+  constexpr int ld = ld_of<kHdp>();
+  const int lane = lane_id();
+#pragma unroll
+  for (int dp = 0; dp < kHdp / 16; ++dp) {
+    uint32_t bf[4];
+    ldsm_x4_trans(bf, b + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + dp * 16 +
+                          (lane >> 4) * 8);
+    mma(out[2 * dp], a, bf[0], bf[1]);
+    mma(out[2 * dp + 1], a, bf[2], bf[3]);
+  }
+}
+
+// The A fragment of a 16 x 16 k-step from the two n-tiles of C fragments
+// that hold it, each value rounded to bf16.
+__device__ __forceinline__ void a_from_c(uint32_t (&a)[4], const float (&c)[2][4]) {
+  a[0] = pack(c[0][0], c[0][1]);
+  a[1] = pack(c[0][2], c[0][3]);
+  a[2] = pack(c[1][0], c[1][1]);
+  a[3] = pack(c[1][2], c[1][3]);
+}
+
+// sqrt(head_dim), the reference's divisor of the scores, and its
+// correctly rounded reciprocal, for both rows of a fragment
+struct Root {
+  float root[2], inv[2];
+};
+
+__device__ __forceinline__ Root root_of(int hd) {
+  const float root = sqrtf((float)hd), inv = __frcp_rn(root);
+  return {{root, root}, {inv, inv}};
+}
+
+// s[nt] becomes the scores of 16 rows from their f32 products: bf16,
+// divided by sqrt(head_dim), or the fill where the key lies after the
+// query (rows q0 + frag_row, keys key0 + 8 nt + frag_col).
+__device__ __forceinline__ void to_scores(float (&s)[2][4], int q0, int key0,
+                                          const Root& root) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[nt][i] = round_bf16(s[nt][i]);
+  divide(s, root.root, root.inv);
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (key0 + 8 * nt + frag_col(i) > q0 + frag_row(i)) s[nt][i] = kMasked;
+}
+
+// Per-thread spill of a warp's 16 keys of a chunk (2 n-tiles) as bf16
+// pairs, lane-major so that a warp's 32 words fall in 32 banks; only the
+// thread that wrote a value reads it back.
+constexpr int kSpillWords = 4 * 32;  // words a warp spills per chunk
+
+__device__ __forceinline__ void spill(uint32_t* at, const float (&s)[2][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    at[(2 * nt) * 32 + lane_id()] = pack(s[nt][0], s[nt][1]);
+    at[(2 * nt + 1) * 32 + lane_id()] = pack(s[nt][2], s[nt][3]);
+  }
+}
+
+__device__ __forceinline__ void unspill(float (&s)[2][4], const uint32_t* at) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const uint32_t u = at[(2 * nt) * 32 + lane_id()], w = at[(2 * nt + 1) * 32 + lane_id()];
+    s[nt][0] = lo_of(u);
+    s[nt][1] = hi_of(u);
+    s[nt][2] = lo_of(w);
+    s[nt][3] = hi_of(w);
+  }
+}
+
+// v, each warp's value for the thread's two rows (already reduced over
+// its quad), becomes the max or the sum over the block's warps, taken in
+// warp order through red [kWarps][16], so every thread gets the same bits.
+// Each call takes its own red.
+template <bool kMax>
+__device__ __forceinline__ void across_warps(float (&v)[2], float* red) {
+  const int warp = threadIdx.x >> 5;
+  if ((lane_id() & 3) == 0) {
+    red[warp * kRows + frag_row(0)] = v[0];
+    red[warp * kRows + frag_row(2)] = v[1];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float acc = red[frag_row(2 * h)];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      const float x = red[w * kRows + frag_row(2 * h)];
+      acc = kMax ? fmaxf(acc, x) : acc + x;
+    }
+    v[h] = acc;
+  }
+}
+
+// s = exp(s - max) in place; exp(-1e30 - max) is exactly 0
+__device__ __forceinline__ void exps(float (&s)[2][4], const float (&m)[2]) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[nt][i] = expf(s[nt][i] - m[i >> 1]);
+}
+
+// y = e / sum in place, the sums of the fragment's two rows
+__device__ __forceinline__ void normalize(float (&e)[2][4], const float (&l)[2]) {
+  const float inv_l[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+  divide(e, l, inv_l);
+}
+
+// y = exp(score - max) / sum in place over scores
+__device__ __forceinline__ void to_probs(float (&s)[2][4], const float (&m)[2],
+                                         const float (&l)[2]) {
+  exps(s, m);
+  normalize(s, l);
+}
+
+// The softmax statistics of the block's 16 query rows: max and sum over
+// all keys [0, n_keys), for the thread's two rows.  Warp w takes keys
+// [16 w, 16 w + 16) of each chunk of 64, in s.  With kOne (n_keys <= 64)
+// ks holds every key already and s ends as exp(score - max); otherwise the
+// block stages K a chunk at a time into ks, and each warp spills its raw
+// bf16 scores of every chunk to `spilled`, in order.  The forward and the
+// backward both call this, so they see the same y.
+template <int kHdp, bool kOne>
+__device__ __forceinline__ void softmax_stats(float (&s)[2][4], float (&m)[2], float (&l)[2],
+                                              float* red, const bf16* qs, bf16* ks,
+                                              uint32_t* spilled, const bf16* k_src,
+                                              size_t stride, int q0, int n_keys, int hd,
+                                              bool vec, const Root& root) {
+  constexpr int ld = ld_of<kHdp>();
+  const int warp = threadIdx.x >> 5;
+  const int chunks = kOne ? 1 : (n_keys + kChunk - 1) / kChunk;
+  m[0] = m[1] = kMasked;
+  for (int c = 0; c < chunks; ++c) {
+    const int key0 = c * kChunk, n = min(kChunk, n_keys - key0);
+    if (!kOne) {
+      __syncthreads();
+      stage<kHdp, kThreads>(ks, k_src, stride, key0, n, round16(n), hd, vec, threadIdx.x);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    product_abt<kHdp>(s, qs, ks + 16 * warp * ld, 16 * warp < n);
+    if (!kOne) spill(spilled + (c * kWarps + warp) * kSpillWords, s);
+    to_scores(s, q0, key0 + 16 * warp, root);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) m[i >> 1] = fmaxf(m[i >> 1], s[nt][i]);
+  }
+  m[0] = quad_max(m[0]);
+  m[1] = quad_max(m[1]);
+  across_warps<true>(m, red);
+  l[0] = l[1] = 0.0f;
+  for (int c = 0; c < chunks; ++c) {
+    if (!kOne) {
+      unspill(s, spilled + (c * kWarps + warp) * kSpillWords);
+      to_scores(s, q0, c * kChunk + 16 * warp, root);
+    }
+    exps(s, m);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) l[i >> 1] += s[nt][i];
+  }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+  across_warps<false>(l, red + kWarps * kRows);
+}
+
+// dp becomes dS_bf before its rounding: y (dP - D) / sqrt(head_dim) where
+// the key is at or before the query, else 0
+__device__ __forceinline__ void to_grad_scores(float (&dp)[2][4], const float (&y)[2][4],
+                                               const float (&big_d)[2], int q0, int key0,
+                                               const Root& root) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      dp[nt][i] = key0 + 8 * nt + frag_col(i) <= q0 + frag_row(i)
+                      ? y[nt][i] * (dp[nt][i] - big_d[i >> 1]) : 0.0f;
+  divide(dp, root.root, root.inv);
+}
+
+// The block's kWarps partial 16-row C-fragment arrays c, summed in warp
+// order through partial [kWarps][16][ld] f32, stored as bf16 to dst (row
+// stride `stride`) in rows < rows and columns < hd.  The caller has made
+// sure that no thread still reads what partial overlays.
+template <int kHdp>
+__device__ __forceinline__ void store_warp_sum(float* partial, const float (&c)[kHdp / 8][4],
+                                               bf16* dst, size_t stride, int rows, int hd) {
+  constexpr int ld = ld_of<kHdp>();
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int nt = 0; nt < kHdp / 8; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(partial + (warp * kRows + frag_row(2 * h)) * ld + 8 * nt +
+                                 frag_col(0)) = make_float2(c[nt][2 * h], c[nt][2 * h + 1]);
+  __syncthreads();
+  for (int e = threadIdx.x; e < rows * hd; e += kThreads) {
+    const int r = e / hd, col = e - r * hd;
+    const float* from = partial + r * ld + col;
+    float sum = from[0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) sum += from[w * kRows * ld];
+    dst[(size_t)r * stride + col] = __float2bfloat16(sum);
+  }
+}
+
+// Shared memory of each kernel, in bytes.
+template <int kHdp>
+size_t tile_bytes(int rows) { return (size_t)rows * ld_of<kHdp>() * sizeof(bf16); }
+
+constexpr size_t red_bytes(int n) { return (size_t)n * kWarps * kRows * sizeof(float); }
+
+// each warp's spilled 16 keys of every chunk
+__host__ __device__ int spill_words(int s) {
+  return (s + kChunk - 1) / kChunk * kWarps * kSpillWords;
+}
+
+size_t spill_bytes(int s) { return spill_words(s) * sizeof(uint32_t); }
+
+// the query tile, K and V chunks (the warps' partial outputs take them
+// over at the end), max and sum, the spilled scores
+template <int kHdp, bool kOne>
+size_t fwd_smem(int s) {
+  return tile_bytes<kHdp>(kRows + 2 * kChunk) + red_bytes(2) + (kOne ? 0 : spill_bytes(s));
+}
+
+// as the forward, with dO's tile, D, and the spilled dP
+template <int kHdp, bool kOne>
+size_t bwd_dq_smem(int s) {
+  return tile_bytes<kHdp>(2 * kRows + 2 * kChunk) + red_bytes(3) +
+         (kOne ? 0 : 2 * spill_bytes(s));
+}
+
+// K and V tiles; per warp, two buffers of q and dO (which the warps'
+// partial dK and dV take over after the walk) and its p and dS tiles
+template <int kHdp>
+size_t bwd_dkv_smem() {
+  return tile_bytes<kHdp>(2 * kRows + kWarps * 4 * kRows) +
+         kWarps * 2 * (size_t)kRows * 24 * sizeof(bf16);
+}
+
+// ---- kernels ------------------------------------------------------------
+
+// Forward: one block of kWarps warps per (query tile, head, batch); warp w
+// takes keys [16 w, 16 w + 16) of each chunk of 64.
+template <int kHdp, bool kOne>
+__global__ void __launch_bounds__(kThreads)
+causal_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int s,
+                        int n_heads, int hd, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int ld = ld_of<kHdp>();
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // [16][ld]  the query tile
+  bf16* ks = qs + kRows * ld;                // [64][ld]  keys
+  bf16* vs = ks + kChunk * ld;               // [64][ld]  values
+  float* red = reinterpret_cast<float*>(vs + kChunk * ld);             // [2][warps][16]
+  uint32_t* spilled = reinterpret_cast<uint32_t*>(red + 2 * kWarps * kRows);
+  float* partial = reinterpret_cast<float*>(ks);  // [warps][16][ld], at the end
+
+  const int warp = threadIdx.x >> 5;
+  const int d = n_heads * hd;
+  const size_t stride = 3 * (size_t)d;
+  const int q0 = blockIdx.x * kRows;
+  const int rows = min(kRows, s - q0);
+  const int n_keys = q0 + rows;  // later keys are masked for every row
+  const bf16* base = qkv + (size_t)blockIdx.z * s * stride + (size_t)blockIdx.y * hd;
+  const Root root = root_of(hd);
+
+  stage<kHdp, kThreads>(qs, base, stride, q0, rows, kRows, hd, vec, threadIdx.x);
+  if (kOne)
+    stage<kHdp, kThreads>(ks, base + d, stride, 0, n_keys, round16(n_keys), hd, vec, threadIdx.x);
+  cp_async_commit();
+  if (kOne) {
+    stage<kHdp, kThreads>(vs, base + 2 * d, stride, 0, n_keys, round16(n_keys), hd, vec,
+                          threadIdx.x);
+    cp_async_commit();
+    cp_async_wait<1>();  // q and k; v still in flight
+  } else {
+    cp_async_wait<0>();
   }
   __syncthreads();
 
-  // one warp per row; exp(-1e30 - max) is exactly 0
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    float* row = sc + r * s;
-    float m = -INFINITY;
-    for (int j = lane; j < n_keys; j += 32) m = fmaxf(m, row[j]);
-    m = warp_max(m);
-    float total = 0.0f;
-    for (int j = lane; j < n_keys; j += 32) {
-      const float e = expf(row[j] - m);
-      row[j] = e;
-      total += e;
+  float sc[2][4], m[2], l[2];
+  softmax_stats<kHdp, kOne>(sc, m, l, red, qs, ks, spilled, base + d, stride, q0, n_keys, hd,
+                            vec, root);
+
+  float o[kHdp / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < kHdp / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.0f;
+  const int chunks = kOne ? 1 : (n_keys + kChunk - 1) / kChunk;
+  for (int c = 0; c < chunks; ++c) {
+    const int key0 = c * kChunk, n = min(kChunk, n_keys - key0);
+    if (kOne) {
+      cp_async_wait<0>();
+      __syncthreads();
+      normalize(sc, l);
+    } else {
+      __syncthreads();
+      stage<kHdp, kThreads>(vs, base + 2 * d, stride, key0, n, round16(n), hd, vec, threadIdx.x);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      unspill(sc, spilled + (c * kWarps + warp) * kSpillWords);
+      to_scores(sc, q0, key0 + 16 * warp, root);
+      to_probs(sc, m, l);
     }
-    total = warp_sum(total);
-    for (int j = lane; j < n_keys; j += 32) {
-      const float y = row[j] / total;
-      row[j] = kRound ? round_bf16(y) : y;
+    // p = bf16(y) straight from the C fragments into the A fragment
+    if (16 * warp < n) {
+      uint32_t a[4];
+      a_from_c(a, sc);
+      product_ab<kHdp>(o, a, vs, 16 * warp);
     }
   }
+  __syncthreads();  // every warp is done with k and v
+  store_warp_sum<kHdp>(partial, o,
+                       out + ((size_t)blockIdx.z * s + q0) * d + (size_t)blockIdx.y * hd, d, rows,
+                       hd);
 }
 
-// acc[e] += sum_j w[r][k0 + j] * rows[j][c] over the kn staged rows, for
-// the outputs (r, c) this thread owns: i = tid + e * kThreads, r = i / hd.
-__device__ __forceinline__ void weighted_sum(float* acc, const float* w, int w_ld,
-                                             int k0, const float* staged, int kn,
-                                             int n_rows, int hd, int ld) {
-#pragma unroll
-  for (int e = 0; e < kAcc; ++e) {
-    const int i = threadIdx.x + e * kThreads;
-    const int r = i / hd, c = i - r * hd;
-    if (i >= kRows * hd || r >= n_rows) continue;
-    const float* p = w + r * w_ld + k0;
-    float a = acc[e];
-    for (int j = 0; j < kn; ++j) a = fmaf(p[j], staged[j * ld + c], a);
-    acc[e] = a;
-  }
-}
-
-// Write the tile's outputs (r, c) to dst (row stride row_stride), bf16.
-__device__ __forceinline__ void store_tile(__nv_bfloat16* dst, size_t row_stride,
-                                           const float* acc, int n_rows, int hd) {
-#pragma unroll
-  for (int e = 0; e < kAcc; ++e) {
-    const int i = threadIdx.x + e * kThreads;
-    const int r = i / hd, c = i - r * hd;
-    if (i >= kRows * hd || r >= n_rows) continue;
-    dst[(size_t)r * row_stride + c] = __float2bfloat16(acc[e]);
-  }
-}
-
+// Backward, first launch: one block of kWarps warps per (query tile, head,
+// batch), the keys split as in the forward.  Writes dQ, and each row's
+// max, sum and D for the second launch.
+template <int kHdp, bool kOne>
 __global__ void __launch_bounds__(kThreads)
-causal_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
-                        __nv_bfloat16* __restrict__ out,
-                        int s, int n_heads, int hd) {
-  extern __shared__ float smem[];
-  const int ld = hd + 1;
-  float* qs = smem;               // [kRows][ld]  the query tile
-  float* kv = qs + kRows * ld;    // [kKeys][ld]  staged keys or values
-  float* sc = kv + kKeys * ld;    // [kRows][s]   probabilities
+causal_attention_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                               bf16* __restrict__ dqkv, float* __restrict__ stats, int s,
+                               int n_heads, int hd, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int ld = ld_of<kHdp>();
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // [16][ld]  the query tile
+  bf16* dos = qs + kRows * ld;               // [16][ld]  its rows of dO
+  bf16* ks = dos + kRows * ld;               // [64][ld]  keys
+  bf16* vs = ks + kChunk * ld;               // [64][ld]  values
+  float* red = reinterpret_cast<float*>(vs + kChunk * ld);  // [3][warps][16]
+  uint32_t* spilled = reinterpret_cast<uint32_t*>(red + 3 * kWarps * kRows);  // raw scores
+  uint32_t* dp_spilled = spilled + (kOne ? 0 : spill_words(s));  // dP
+  float* partial = reinterpret_cast<float*>(ks);  // [warps][16][ld], at the end
 
+  const int warp = threadIdx.x >> 5;
   const int d = n_heads * hd;
-  const size_t row_stride = 3 * (size_t)d;
-  const int q0 = blockIdx.x * kRows;
-  const int rows = min(kRows, s - q0);
-  const int n_keys = q0 + rows;   // later keys are masked for every row
-  const __nv_bfloat16* base =
-      qkv + (size_t)blockIdx.z * s * row_stride + (size_t)blockIdx.y * hd;
-
-  load_tile(qs, base, row_stride, q0, rows, hd, ld);
-  softmax_tile<true>(base + d, row_stride, qs, kv, sc, s, hd, ld, q0, rows, n_keys);
-
-  // p @ v
-  float acc[kAcc];
-#pragma unroll
-  for (int e = 0; e < kAcc; ++e) acc[e] = 0.0f;
-  for (int k0 = 0; k0 < n_keys; k0 += kKeys) {
-    const int kn = min(kKeys, n_keys - k0);
-    __syncthreads();
-    stage(kv, base + 2 * d, row_stride, k0, kn, hd, ld);
-    __syncthreads();
-    weighted_sum(acc, sc, s, k0, kv, kn, rows, hd, ld);
-  }
-  store_tile(out + ((size_t)blockIdx.z * s + q0) * d + (size_t)blockIdx.y * hd,
-             d, acc, rows, hd);
-}
-
-// Backward, first launch: one block per (query tile, head, batch).
-// Writes dQ, and p and dS_bf of the tile's rows (keys at or before each
-// query) into the [b, h, s, s] scratch for the second launch.
-__global__ void __launch_bounds__(kThreads)
-causal_attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ qkv,
-                               const __nv_bfloat16* __restrict__ dout,
-                               __nv_bfloat16* __restrict__ dqkv,
-                               __nv_bfloat16* __restrict__ p_out,
-                               __nv_bfloat16* __restrict__ ds_out,
-                               int s, int n_heads, int hd) {
-  extern __shared__ float smem[];
-  const int ld = hd + 1;
-  float* qs = smem;               // [kRows][ld]  the query tile
-  float* dos = qs + kRows * ld;   // [kRows][ld]  its rows of dO
-  float* kv = dos + kRows * ld;   // [kKeys][ld]  staged keys or values
-  float* sc = kv + kKeys * ld;    // [kRows][s]   y
-  float* dp = sc + kRows * s;     // [kRows][s]   dP, then dS_bf
-
-  const int d = n_heads * hd;
-  const size_t row_stride = 3 * (size_t)d;
+  const size_t stride = 3 * (size_t)d;
   const int q0 = blockIdx.x * kRows;
   const int rows = min(kRows, s - q0);
   const int n_keys = q0 + rows;
-  const __nv_bfloat16* base =
-      qkv + (size_t)blockIdx.z * s * row_stride + (size_t)blockIdx.y * hd;
-  const __nv_bfloat16* dbase =
-      dout + (size_t)blockIdx.z * s * d + (size_t)blockIdx.y * hd;
-  const int tid = threadIdx.x;
+  const bf16* base = qkv + (size_t)blockIdx.z * s * stride + (size_t)blockIdx.y * hd;
+  const bf16* dbase = dout + (size_t)blockIdx.z * s * d + (size_t)blockIdx.y * hd;
+  const Root root = root_of(hd);
 
-  load_tile(qs, base, row_stride, q0, rows, hd, ld);
-  load_tile(dos, dbase, d, q0, rows, hd, ld);
-  softmax_tile<false>(base + d, row_stride, qs, kv, sc, s, hd, ld, q0, rows, n_keys);
-
-  // dP = bf16(dO . v) for keys at or before each query
-  for (int k0 = 0; k0 < n_keys; k0 += kKeys) {
-    const int kn = min(kKeys, n_keys - k0);
-    __syncthreads();
-    stage(kv, base + 2 * d, row_stride, k0, kn, hd, ld);
-    __syncthreads();
-    for (int i = tid; i < kRows * kKeys; i += kThreads) {
-      const int r = i / kKeys, j = i - r * kKeys;
-      const int key = k0 + j;
-      if (r >= rows || j >= kn || key > q0 + r) continue;
-      const float* dr = dos + r * ld;
-      const float* vr = kv + j * ld;
-      float acc = 0.0f;
-      for (int c = 0; c < hd; ++c) acc = fmaf(dr[c], vr[c], acc);
-      dp[r * s + key] = round_bf16(acc);
-    }
+  stage<kHdp, kThreads>(qs, base, stride, q0, rows, kRows, hd, vec, threadIdx.x);
+  if (kOne)
+    stage<kHdp, kThreads>(ks, base + d, stride, 0, n_keys, round16(n_keys), hd, vec, threadIdx.x);
+  cp_async_commit();
+  stage<kHdp, kThreads>(dos, dbase, d, q0, rows, kRows, hd, vec, threadIdx.x);
+  if (kOne)
+    stage<kHdp, kThreads>(vs, base + 2 * d, stride, 0, n_keys, round16(n_keys), hd, vec,
+                          threadIdx.x);
+  cp_async_commit();
+  if (kOne) {
+    cp_async_wait<1>();  // q and k; dO and v still in flight
+  } else {
+    cp_async_wait<0>();
   }
   __syncthreads();
 
-  // one warp per row: D, then dS_bf (0 where masked) into dp, and p and
-  // dS_bf to the scratch
-  const float root = sqrtf((float)hd);
-  const int warp = tid >> 5, lane = tid & 31;
-  const size_t plane = ((size_t)blockIdx.z * n_heads + blockIdx.y) * s;
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    const int last = q0 + r;      // the row's last unmasked key
-    const float* y = sc + r * s;
-    float* g = dp + r * s;
-    float part = 0.0f;
-    for (int j = lane; j <= last; j += 32) part = fmaf(y[j], g[j], part);
-    const float big_d = warp_sum(part);
-    __nv_bfloat16* p_row = p_out + (plane + last) * s;
-    __nv_bfloat16* ds_row = ds_out + (plane + last) * s;
-    for (int j = lane; j < n_keys; j += 32) {
-      float ds = 0.0f;
-      if (j <= last) {
-        ds = round_bf16(y[j] * (g[j] - big_d) / root);
-        p_row[j] = __float2bfloat16(y[j]);
-        ds_row[j] = __float2bfloat16(ds);
+  float y[2][4], m[2], l[2];
+  softmax_stats<kHdp, kOne>(y, m, l, red, qs, ks, spilled, base + d, stride, q0, n_keys, hd, vec,
+                            root);
+  const int chunks = kOne ? 1 : (n_keys + kChunk - 1) / kChunk;
+
+  // dP = bf16(dO . v) and D = sum_k y dP over the unmasked keys
+  float dp[2][4], big_d[2] = {0.0f, 0.0f};
+  for (int c = 0; c < chunks; ++c) {
+    const int key0 = c * kChunk, n = min(kChunk, n_keys - key0);
+    if (kOne) {
+      cp_async_wait<0>();
+      __syncthreads();
+      normalize(y, l);
+    } else {
+      __syncthreads();
+      stage<kHdp, kThreads>(vs, base + 2 * d, stride, key0, n, round16(n), hd, vec, threadIdx.x);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      unspill(y, spilled + (c * kWarps + warp) * kSpillWords);
+      to_scores(y, q0, key0 + 16 * warp, root);
+      to_probs(y, m, l);
+    }
+    product_abt<kHdp>(dp, dos, vs + 16 * warp * ld, 16 * warp < n);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        dp[nt][i] = round_bf16(dp[nt][i]);
+        if (key0 + 16 * warp + 8 * nt + frag_col(i) <= q0 + frag_row(i))
+          big_d[i >> 1] = fmaf(y[nt][i], dp[nt][i], big_d[i >> 1]);
       }
-      g[j] = ds;
+    if (!kOne) spill(dp_spilled + (c * kWarps + warp) * kSpillWords, dp);
+  }
+  big_d[0] = quad_sum(big_d[0]);
+  big_d[1] = quad_sum(big_d[1]);
+  across_warps<false>(big_d, red + 2 * kWarps * kRows);
+
+  // dS_bf = bf16(where(mask, y (dP - D), 0) / root), then dQ = bf16(dS_bf K)
+  float dq[kHdp / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < kHdp / 8; ++nt) dq[nt][0] = dq[nt][1] = dq[nt][2] = dq[nt][3] = 0.0f;
+  for (int c = 0; c < chunks; ++c) {
+    const int key0 = c * kChunk, n = min(kChunk, n_keys - key0);
+    if (!kOne) {
+      __syncthreads();
+      stage<kHdp, kThreads>(ks, base + d, stride, key0, n, round16(n), hd, vec, threadIdx.x);
+      cp_async_commit();
+      unspill(y, spilled + (c * kWarps + warp) * kSpillWords);
+      to_scores(y, q0, key0 + 16 * warp, root);
+      to_probs(y, m, l);
+      unspill(dp, dp_spilled + (c * kWarps + warp) * kSpillWords);
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    to_grad_scores(dp, y, big_d, q0, key0 + 16 * warp, root);
+    if (16 * warp < n) {
+      uint32_t a[4];
+      a_from_c(a, dp);
+      product_ab<kHdp>(dq, a, ks, 16 * warp);
     }
   }
+  __syncthreads();  // every warp is done with k and v
+  store_warp_sum<kHdp>(partial, dq,
+                       dqkv + ((size_t)blockIdx.z * s + q0) * stride + (size_t)blockIdx.y * hd,
+                       stride, rows, hd);
 
-  // dQ = bf16(dS_bf K)
-  float acc[kAcc];
+  // the rows' statistics, [3][b][h][s]: max, sum, D
+  if (warp == 0 && (lane_id() & 3) == 0) {
+    const size_t plane = (size_t)gridDim.z * n_heads * s;
+    const size_t row0 = ((size_t)blockIdx.z * n_heads + blockIdx.y) * s + q0;
 #pragma unroll
-  for (int e = 0; e < kAcc; ++e) acc[e] = 0.0f;
-  for (int k0 = 0; k0 < n_keys; k0 += kKeys) {
-    const int kn = min(kKeys, n_keys - k0);
-    __syncthreads();
-    stage(kv, base + d, row_stride, k0, kn, hd, ld);
-    __syncthreads();
-    weighted_sum(acc, dp, s, k0, kv, kn, rows, hd, ld);
+    for (int h = 0; h < 2; ++h) {
+      const int r = frag_row(2 * h);
+      if (r < rows) {
+        stats[row0 + r] = m[h];
+        stats[plane + row0 + r] = l[h];
+        stats[2 * plane + row0 + r] = big_d[h];
+      }
+    }
   }
-  store_tile(dqkv + ((size_t)blockIdx.z * s + q0) * row_stride + (size_t)blockIdx.y * hd,
-             row_stride, acc, rows, hd);
 }
 
-// Backward, second launch: one block per (key tile, head, batch).  Sums
-// dK = bf16(sum_q dS_bf[q,k] q[q]) and dV = bf16(sum_q p[q,k] dO[q]) over
-// the queries at or after each key, in ascending order.
+// Backward, second launch: one block of kWarps warps per (key tile,
+// head, batch); warp w takes the query tiles w, w + kWarps, ... at or
+// after the key tile, in ascending order, and the warps' partial dK =
+// bf16(sum_q dS_bf[q,k] q[q]) and dV = bf16(sum_q p[q,k] dO[q]) are summed
+// in warp order.
+template <int kHdp>
 __global__ void __launch_bounds__(kThreads)
-causal_attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ qkv,
-                                const __nv_bfloat16* __restrict__ dout,
-                                const __nv_bfloat16* __restrict__ p_in,
-                                const __nv_bfloat16* __restrict__ ds_in,
-                                __nv_bfloat16* __restrict__ dqkv,
-                                int s, int n_heads, int hd) {
-  extern __shared__ float smem[];
-  const int ld = hd + 1;
-  float* qb = smem;               // [kKeys][ld]    staged queries' q
-  float* db = qb + kKeys * ld;    // [kKeys][ld]    their dO
-  float* pb = db + kKeys * ld;    // [kKeys][kRows] p[q][key], the tile's keys
-  float* sb = pb + kKeys * kRows; // [kKeys][kRows] dS_bf[q][key]
+causal_attention_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                                const float* __restrict__ stats, bf16* __restrict__ dqkv, int s,
+                                int n_heads, int hd, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int ld = ld_of<kHdp>();
+  constexpr int lp = 24;  // row stride of the p and dS tiles: 16 + 8
+  constexpr int kStep = kRows * kWarps;  // a warp's stride over the query tiles
+  const int warp = threadIdx.x >> 5, lane = lane_id();
+  bf16* ks = reinterpret_cast<bf16*>(smem);      // [16][ld]  the key tile
+  bf16* vs = ks + kRows * ld;                    // [16][ld]  its values
+  bf16* tiles = vs + kRows * ld;                 // [warps][2][2][16][ld]
+  bf16* qs = tiles + warp * 4 * kRows * ld;      // this warp's 2 query tiles
+  bf16* dos = qs + 2 * kRows * ld;               // and their dO
+  bf16* ps = tiles + kWarps * 4 * kRows * ld + warp * 2 * kRows * lp;  // [16][lp] p[q][key]
+  bf16* dss = ps + kRows * lp;                   // [16][lp]  dS_bf[q][key]
+  float* partial = reinterpret_cast<float*>(tiles);  // [2][warps][16][ld], after the walk
 
   const int d = n_heads * hd;
-  const size_t row_stride = 3 * (size_t)d;
+  const size_t stride = 3 * (size_t)d;
   const int k0 = blockIdx.x * kRows;
   const int kn = min(kRows, s - k0);
-  const __nv_bfloat16* base =
-      qkv + (size_t)blockIdx.z * s * row_stride + (size_t)blockIdx.y * hd;
-  const __nv_bfloat16* dbase =
-      dout + (size_t)blockIdx.z * s * d + (size_t)blockIdx.y * hd;
-  const size_t plane = ((size_t)blockIdx.z * n_heads + blockIdx.y) * s;
+  const bf16* base = qkv + (size_t)blockIdx.z * s * stride + (size_t)blockIdx.y * hd;
+  const bf16* dbase = dout + (size_t)blockIdx.z * s * d + (size_t)blockIdx.y * hd;
+  const size_t plane = (size_t)gridDim.z * n_heads * s;
+  const float* row_stats = stats + ((size_t)blockIdx.z * n_heads + blockIdx.y) * s;
+  const Root root = root_of(hd);
+  const int first = k0 + warp * kRows;  // queries before k0 see none of the keys
 
-  float acc_k[kAcc], acc_v[kAcc];
-#pragma unroll
-  for (int e = 0; e < kAcc; ++e) acc_k[e] = acc_v[e] = 0.0f;
-  // queries before k0 see none of the tile's keys
-  for (int qc = k0; qc < s; qc += kKeys) {
-    const int qn = min(kKeys, s - qc);
-    __syncthreads();
-    stage(qb, base, row_stride, qc, qn, hd, ld);
-    stage(db, dbase, d, qc, qn, hd, ld);
-    for (int i = threadIdx.x; i < kKeys * kRows; i += kThreads) {
-      const int j = i / kRows, kk = i - j * kRows;
-      const int q = qc + j, key = k0 + kk;
-      // only entries the first launch wrote: key <= q
-      const bool live = j < qn && kk < kn && key <= q;
-      const size_t at = (plane + q) * s + key;
-      pb[i] = live ? __bfloat162float(p_in[at]) : 0.0f;
-      sb[i] = live ? __bfloat162float(ds_in[at]) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < kAcc; ++e) {
-      const int i = threadIdx.x + e * kThreads;
-      const int r = i / hd, c = i - r * hd;
-      if (i >= kRows * hd || r >= kn) continue;
-      float a_k = acc_k[e], a_v = acc_v[e];
-      for (int j = 0; j < qn; ++j) {
-        a_k = fmaf(sb[j * kRows + r], qb[j * ld + c], a_k);
-        a_v = fmaf(pb[j * kRows + r], db[j * ld + c], a_v);
-      }
-      acc_k[e] = a_k;
-      acc_v[e] = a_v;
-    }
+  stage<kHdp, kThreads>(ks, base + d, stride, k0, kn, kRows, hd, vec, threadIdx.x);
+  stage<kHdp, kThreads>(vs, base + 2 * d, stride, k0, kn, kRows, hd, vec, threadIdx.x);
+  if (first < s) {
+    const int rows = min(kRows, s - first);
+    stage<kHdp, 32>(qs, base, stride, first, rows, kRows, hd, vec, lane);
+    stage<kHdp, 32>(dos, dbase, d, first, rows, kRows, hd, vec, lane);
   }
-  __nv_bfloat16* dst =
-      dqkv + ((size_t)blockIdx.z * s + k0) * row_stride + (size_t)blockIdx.y * hd;
-  store_tile(dst + d, row_stride, acc_k, kn, hd);
-  store_tile(dst + 2 * d, row_stride, acc_v, kn, hd);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float dk[kHdp / 8][4], dv[kHdp / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < kHdp / 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[nt][i] = dv[nt][i] = 0.0f;
+
+  for (int q0 = first, buf = 0; q0 < s; q0 += kStep, buf ^= 1) {
+    const int rows = min(kRows, s - q0);
+    bf16* qb = qs + buf * kRows * ld;
+    bf16* db = dos + buf * kRows * ld;
+    float m[2], l[2], big_d[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = frag_row(2 * h);
+      const bool in = r < rows;
+      m[h] = in ? row_stats[q0 + r] : 0.0f;
+      l[h] = in ? row_stats[plane + q0 + r] : 1.0f;
+      big_d[h] = in ? row_stats[2 * plane + q0 + r] : 0.0f;
+    }
+    __syncwarp();  // every lane is done with the other buffer and the p, dS tiles
+    if (q0 + kStep < s) {
+      const int next = min(kRows, s - q0 - kStep);
+      bf16* q_next = qs + (buf ^ 1) * kRows * ld;
+      bf16* d_next = dos + (buf ^ 1) * kRows * ld;
+      stage<kHdp, 32>(q_next, base, stride, q0 + kStep, next, kRows, hd, vec, lane);
+      stage<kHdp, 32>(d_next, dbase, d, q0 + kStep, next, kRows, hd, vec, lane);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+
+    // the first launch's products for these 16 queries and 16 keys, in
+    // the same roles: queries as the A rows, keys as the B columns; then
+    // its y, and dS_bf before the rounding
+    float y[2][4], dp[2][4];
+    product_abt<kHdp>(y, qb, ks, true);
+    product_abt<kHdp>(dp, db, vs, true);
+    to_scores(y, q0, k0, root);
+    to_probs(y, m, l);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (frag_row(i) >= rows) y[nt][i] = 0.0f;  // past the last query
+        dp[nt][i] = round_bf16(dp[nt][i]);
+      }
+    to_grad_scores(dp, y, big_d, q0, k0, root);
+    // p and dS_bf to shared memory, [query][key], to read back transposed
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int at = frag_row(2 * h) * lp + 8 * nt + frag_col(0);
+        *reinterpret_cast<uint32_t*>(ps + at) = pack(y[nt][2 * h], y[nt][2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(dss + at) = pack(dp[nt][2 * h], dp[nt][2 * h + 1]);
+      }
+    __syncwarp();
+    // A = p^T and dS^T: rows the tile's keys, k the 16 queries
+    uint32_t a_p[4], a_ds[4];
+    const int mi = lane >> 3;
+    const int at = ((lane & 7) + (mi >> 1) * 8) * lp + (mi & 1) * 8;
+    ldsm_x4_trans(a_p, ps + at);
+    ldsm_x4_trans(a_ds, dss + at);
+    product_ab<kHdp>(dv, a_p, db, 0);
+    product_ab<kHdp>(dk, a_ds, qb, 0);
+  }
+
+  // the warps' partial sums, added in warp order
+  __syncthreads();  // every warp is done with its q and dO tiles
+  bf16* dst = dqkv + ((size_t)blockIdx.z * s + k0) * stride + (size_t)blockIdx.y * hd;
+  store_warp_sum<kHdp>(partial, dk, dst + d, stride, kn, hd);
+  store_warp_sum<kHdp>(partial + kWarps * kRows * ld, dv, dst + 2 * d, stride, kn, hd);
 }
 
 bool valid(int b, int s, int n_heads, int head_dim) {
@@ -393,6 +863,76 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// 16-byte loads need head_dim a multiple of 8 and 16-byte aligned bases.
+bool vec_ok(int head_dim, const void* a, const void* b, const void* c) {
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  return head_dim % 8 == 0 && aligned(a) && aligned(b) && aligned(c);
+}
+
+template <int kHdp, bool kOne>
+cudaError_t launch_fwd(const bf16* qkv, bf16* out, int b, int s, int n_heads, int hd,
+                       cudaStream_t st) {
+  const size_t smem = fwd_smem<kHdp, kOne>(s);
+  const cudaError_t err = allow_smem(causal_attention_kernel<kHdp, kOne>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s + kRows - 1) / kRows, n_heads, b);
+  causal_attention_kernel<kHdp, kOne><<<grid, kThreads, smem, st>>>(
+      qkv, out, s, n_heads, hd, vec_ok(hd, qkv, out, qkv));
+  return cudaGetLastError();
+}
+
+template <int kHdp, bool kOne>
+cudaError_t launch_bwd(const bf16* qkv, const bf16* dout, bf16* dqkv, float* stats, int b, int s,
+                       int n_heads, int hd, cudaStream_t st) {
+  const size_t smem_dq = bwd_dq_smem<kHdp, kOne>(s), smem_dkv = bwd_dkv_smem<kHdp>();
+  cudaError_t err = allow_smem(causal_attention_bwd_dq_kernel<kHdp, kOne>, smem_dq);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(causal_attention_bwd_dkv_kernel<kHdp>, smem_dkv);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s + kRows - 1) / kRows, n_heads, b);
+  const bool vec = vec_ok(hd, qkv, dout, dqkv);
+  causal_attention_bwd_dq_kernel<kHdp, kOne><<<grid, kThreads, smem_dq, st>>>(
+      qkv, dout, dqkv, stats, s, n_heads, hd, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  causal_attention_bwd_dkv_kernel<kHdp><<<grid, kThreads, smem_dkv, st>>>(
+      qkv, dout, stats, dqkv, s, n_heads, hd, vec);
+  return cudaGetLastError();
+}
+
+// f.run<kHdp, kOne>(): the padded head width, and whether one chunk holds
+// every key
+template <typename F>
+cudaError_t dispatch(int s, int head_dim, const F& f) {
+  const bool one = s <= kChunk;
+  if (head_dim <= 16) return one ? f.template run<16, true>() : f.template run<16, false>();
+  if (head_dim <= 32) return one ? f.template run<32, true>() : f.template run<32, false>();
+  if (head_dim <= 64) return one ? f.template run<64, true>() : f.template run<64, false>();
+  return one ? f.template run<128, true>() : f.template run<128, false>();
+}
+
+struct Forward {
+  const bf16* qkv;
+  bf16* out;
+  int b, s, n_heads, hd;
+  cudaStream_t st;
+  template <int kHdp, bool kOne>
+  cudaError_t run() const { return launch_fwd<kHdp, kOne>(qkv, out, b, s, n_heads, hd, st); }
+};
+
+struct Backward {
+  const bf16* qkv;
+  const bf16* dout;
+  bf16* dqkv;
+  float* stats;
+  int b, s, n_heads, hd;
+  cudaStream_t st;
+  template <int kHdp, bool kOne>
+  cudaError_t run() const {
+    return launch_bwd<kHdp, kOne>(qkv, dout, dqkv, stats, b, s, n_heads, hd, st);
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -403,50 +943,26 @@ const char* of_error_string(int status) {
 
 // qkv: bf16 [b, s, 3 * n_heads * head_dim], contiguous; out: bf16
 // [b, s, n_heads * head_dim], contiguous.  Returns cudaGetLastError().
-int causal_attention_bf16(const void* qkv, void* out, int b, int s,
-                          int n_heads, int head_dim, void* stream) {
+int causal_attention_bf16(const void* qkv, void* out, int b, int s, int n_heads, int head_dim,
+                          void* stream) {
   if (!valid(b, s, n_heads, head_dim)) return cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * ((size_t)(kRows + kKeys) * (head_dim + 1) + (size_t)kRows * s);
-  const cudaError_t err = allow_smem(causal_attention_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((s + kRows - 1) / kRows, n_heads, b);
-  causal_attention_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
-      s, n_heads, head_dim);
-  return cudaGetLastError();
+  const Forward f{static_cast<const bf16*>(qkv), static_cast<bf16*>(out), b, s, n_heads,
+                  head_dim, static_cast<cudaStream_t>(stream)};
+  return dispatch(s, head_dim, f);
 }
 
 // qkv: bf16 [b, s, 3d] as in the forward; dout: bf16 [b, s, d]; dqkv: bf16
-// [b, s, 3d]; p_scratch and ds_scratch: bf16 [b, n_heads, s, s] each, all
-// contiguous, d = n_heads * head_dim.  Two launches on one stream; returns
+// [b, s, 3d]; stats: f32 [3, b, n_heads, s] (each row's softmax max, sum
+// and D, handed from the first launch to the second), all contiguous,
+// d = n_heads * head_dim.  Two launches on one stream; returns
 // cudaGetLastError().
-int causal_attention_bwd_bf16(const void* qkv, const void* dout, void* dqkv,
-                              void* p_scratch, void* ds_scratch, int b, int s,
-                              int n_heads, int head_dim, void* stream) {
+int causal_attention_bwd_bf16(const void* qkv, const void* dout, void* dqkv, void* stats, int b,
+                              int s, int n_heads, int head_dim, void* stream) {
   if (!valid(b, s, n_heads, head_dim)) return cudaErrorInvalidValue;
-  const size_t ld = head_dim + 1;
-  const size_t smem_dq =
-      sizeof(float) * ((2 * kRows + kKeys) * ld + 2 * (size_t)kRows * s);
-  const size_t smem_dkv = sizeof(float) * (2 * kKeys * ld + 2 * kKeys * kRows);
-  cudaError_t err = allow_smem(causal_attention_bwd_dq_kernel, smem_dq);
-  if (err != cudaSuccess) return err;
-  err = allow_smem(causal_attention_bwd_dkv_kernel, smem_dkv);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((s + kRows - 1) / kRows, n_heads, b);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qkv_p = static_cast<const __nv_bfloat16*>(qkv);
-  const auto* dout_p = static_cast<const __nv_bfloat16*>(dout);
-  auto* dqkv_p = static_cast<__nv_bfloat16*>(dqkv);
-  auto* p_p = static_cast<__nv_bfloat16*>(p_scratch);
-  auto* ds_p = static_cast<__nv_bfloat16*>(ds_scratch);
-  causal_attention_bwd_dq_kernel<<<grid, kThreads, smem_dq, st>>>(
-      qkv_p, dout_p, dqkv_p, p_p, ds_p, s, n_heads, head_dim);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  causal_attention_bwd_dkv_kernel<<<grid, kThreads, smem_dkv, st>>>(
-      qkv_p, dout_p, p_p, ds_p, dqkv_p, s, n_heads, head_dim);
-  return cudaGetLastError();
+  const Backward f{static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
+                   static_cast<bf16*>(dqkv), static_cast<float*>(stats), b, s, n_heads,
+                   head_dim, static_cast<cudaStream_t>(stream)};
+  return dispatch(s, head_dim, f);
 }
 
 }  // extern "C"

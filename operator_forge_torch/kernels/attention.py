@@ -104,8 +104,7 @@ def _library() -> ctypes.CDLL:
     lib.causal_attention_bf16.restype = ctypes.c_int
     lib.causal_attention_bwd_bf16.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.causal_attention_bwd_bf16.restype = ctypes.c_int
     return lib
@@ -154,13 +153,13 @@ def causal_attention_bwd(
         )
     lib = _library()
     dqkv = torch.empty_like(qkv)
-    # p and dS_bf of every (query, key <= query), handed between the launches
-    scratch = torch.empty(2, b, n_heads, s, s, dtype=torch.bfloat16, device=qkv.device)
+    # each row's softmax max and sum and its D = sum_k y dP, handed from the
+    # first launch to the second: f32 [3, b, h, s], 24 KB at DemoConfig()
+    stats = torch.empty(3, b, n_heads, s, dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         status = lib.causal_attention_bwd_bf16(
-            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), scratch[0].data_ptr(),
-            scratch[1].data_ptr(), b, s, n_heads, head_dim,
-            torch.cuda.current_stream().cuda_stream,
+            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            b, s, n_heads, head_dim, torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, status, "causal_attention_bwd")
     bwd_launches += 1
