@@ -18,7 +18,9 @@ Phases, each of which exits non-zero on a failed check:
       computes the same function (a yardstick only: the port never calls
       it; for a backward, PyTorch's backward op alone on its forward's
       saved outputs), also from a CUDA graph; print one JSON line per
-      kernel;
+      kernel, then the kernels ranked by device time over their PyTorch
+      call's, the RMSNorm backward's cluster size, and the ring step's
+      time on longer blocks beside SDPA's;
   (d) serve requests: ``entry()``'s forward on seeded token batches, each
       checked against the same forward on the CPU (plain versions), with
       every kernel's launch count read around those calls; print the
@@ -77,6 +79,9 @@ REQUESTS = 4
 TRAIN_STEPS = 10
 SHARDED_STEPS = 3
 RING_RANKS = 4
+# longer ring blocks, [batch, heads, seq, head_dim], whose earlier-block
+# step is timed beside SDPA's
+RING_TIMED = ((1, 4, 256, 32), (1, 4, 1024, 32))
 # each wrapper's launch counter; the kernels line's cross_entropy sums the
 # forward's and the backward's
 COUNTERS = {
@@ -90,6 +95,8 @@ COUNTERS = {
     "cross_entropy_bwd": (ce, "bwd_launches"),
     "ring_attention_step": (ra, "launches"),
 }
+
+
 def fail(message: str) -> None:
     print(f"chip_smoke: FAILED: {message}", file=sys.stderr)
     sys.exit(1)
@@ -259,15 +266,19 @@ def backward_rows(inputs: dict) -> list[dict]:
                     5 * 2 * hd * b * n_heads * s * (s + 1) // 2, BF16_FLOP_PER_S),
     ))
 
-    # RMSNorm backward: rtol 1e-5, atol 1e-6 of each output's max
+    # RMSNorm backward: rtol 1e-5, atol 1e-6 of each output's max; the
+    # size of the cluster it runs on (none where a tree's backward takes
+    # none: this script run from an older checkout, to compare)
     x, gain, dy = inputs["rmsnorm_bwd"]
     got = rmsnorm.rmsnorm_bwd(x, gain, dy)
     want = rmsnorm.rmsnorm_bwd_ref(x, gain, dy)
+    cluster = getattr(rmsnorm, "cluster", None)
+    print(json.dumps({"rmsnorm_bwd_cluster": cluster() if cluster else None}))
     # PyTorch's fused RMSNorm backward alone, on its forward's saved rstd
     _, rstd = torch.ops.aten._fused_rms_norm(x, [x.shape[-1]], gain, rmsnorm.EPS)
     rows.append(dict(
-        name="rmsnorm_bwd", route="triton",
-        source="operator_forge_torch/kernels/rmsnorm.py",
+        name="rmsnorm_bwd", route="cuda",
+        source="operator_forge_torch/csrc/rmsnorm_bwd.cu",
         replaces="operator_forge/tpu/demo.py:71",
         fn=lambda: rmsnorm.rmsnorm_bwd(x, gain, dy),
         plain=lambda: rmsnorm.rmsnorm_bwd_ref(x, gain, dy),
@@ -385,6 +396,16 @@ def ring_row(config: demo.DemoConfig) -> dict:
                     "ms": time_ms(lambda: ra.ring_step(*qkv, *scratch, my, origin)),
                     "graph_ms": graph_ms(lambda: ra.ring_step(*qkv, *scratch, my, origin)),
                 }
+    # an earlier block at each longer shape, beside SDPA at that shape
+    for long in RING_TIMED:
+        (q, k, v), carry, my, origin = ring_case(long, torch.float32, "earlier", g)
+        scratch = [t.clone() for t in carry]
+        every_key = torch.ones(long[2], long[2], dtype=torch.bool, device="cuda")
+        cases[f"earlier {list(long)}"] = {
+            "graph_ms": graph_ms(lambda: ra.ring_step(q, k, v, *scratch, my, origin)),
+            "library_graph_ms": graph_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=every_key)),
+        }
     print(json.dumps({"ring_attention_step_cases": {"shape": list(first), **cases}}))
 
     qkv, carry, my, origin = ring_case(first, torch.float32, "earlier", g)
@@ -500,6 +521,12 @@ def phase_kernels(inputs: dict, config: demo.DemoConfig) -> list[dict]:
         }
         print(json.dumps(line))
         out.append(line)
+    # step 2's order: each kernel's device time over its PyTorch call's
+    ranking = sorted(({"name": r["name"], "graph_ms": r["graph_ms"],
+                       "library_graph_ms": r["library_graph_ms"],
+                       "factor": r["graph_ms"] / r["library_graph_ms"]} for r in out),
+                     key=lambda r: -r["factor"])
+    print(json.dumps({"against_library": ranking}))
     return out
 
 

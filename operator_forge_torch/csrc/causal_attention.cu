@@ -77,6 +77,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -855,29 +857,23 @@ bool valid(int b, int s, int n_heads, int head_dim) {
          n_heads <= 65535 && head_dim >= 1 && head_dim <= kMaxHeadDim;
 }
 
-// Raise a kernel's dynamic shared memory limit where it needs over 48 KB.
+// Let a kernel take as much dynamic shared memory as a block may have.
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-// 16-byte loads need head_dim a multiple of 8 and 16-byte aligned bases.
-bool vec_ok(int head_dim, const void* a, const void* b, const void* c) {
-  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  return head_dim % 8 == 0 && aligned(a) && aligned(b) && aligned(c);
+cudaError_t allow_smem(Kernel kernel) {
+  return of::set_attribute_once(reinterpret_cast<const void*>(kernel),
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, of::kMaxSmemBytes);
 }
 
 template <int kHdp, bool kOne>
 cudaError_t launch_fwd(const bf16* qkv, bf16* out, int b, int s, int n_heads, int hd,
                        cudaStream_t st) {
   const size_t smem = fwd_smem<kHdp, kOne>(s);
-  const cudaError_t err = allow_smem(causal_attention_kernel<kHdp, kOne>, smem);
+  const cudaError_t err = allow_smem(causal_attention_kernel<kHdp, kOne>);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + kRows - 1) / kRows, n_heads, b);
+  // 16-byte loads need head_dim a multiple of 8 and 16-byte aligned bases
   causal_attention_kernel<kHdp, kOne><<<grid, kThreads, smem, st>>>(
-      qkv, out, s, n_heads, hd, vec_ok(hd, qkv, out, qkv));
+      qkv, out, s, n_heads, hd, hd % 8 == 0 && of::aligned16(qkv, out));
   return cudaGetLastError();
 }
 
@@ -885,12 +881,12 @@ template <int kHdp, bool kOne>
 cudaError_t launch_bwd(const bf16* qkv, const bf16* dout, bf16* dqkv, float* stats, int b, int s,
                        int n_heads, int hd, cudaStream_t st) {
   const size_t smem_dq = bwd_dq_smem<kHdp, kOne>(s), smem_dkv = bwd_dkv_smem<kHdp>();
-  cudaError_t err = allow_smem(causal_attention_bwd_dq_kernel<kHdp, kOne>, smem_dq);
+  cudaError_t err = allow_smem(causal_attention_bwd_dq_kernel<kHdp, kOne>);
   if (err != cudaSuccess) return err;
-  err = allow_smem(causal_attention_bwd_dkv_kernel<kHdp>, smem_dkv);
+  err = allow_smem(causal_attention_bwd_dkv_kernel<kHdp>);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + kRows - 1) / kRows, n_heads, b);
-  const bool vec = vec_ok(hd, qkv, dout, dqkv);
+  const bool vec = hd % 8 == 0 && of::aligned16(qkv, dout, dqkv);
   causal_attention_bwd_dq_kernel<kHdp, kOne><<<grid, kThreads, smem_dq, st>>>(
       qkv, dout, dqkv, stats, s, n_heads, hd, vec);
   err = cudaGetLastError();

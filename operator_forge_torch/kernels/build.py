@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers) and is
 compiled by ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so``,
-where ``<hash>`` covers the source and the flags: a changed source builds
-anew, an unchanged one loads the library already there.  The build runs at
+where ``<hash>`` covers the source, every header it includes with quotes
+(``#include "common.cuh"``, followed through the headers' own includes)
+and the flags: a changed source or header builds anew, an unchanged one
+loads the library already there.  The build runs at
 first use, under a file lock, so processes that start together build once.
 Every C entry returns ``cudaGetLastError()``; ``check`` raises on a
 non-zero status.
@@ -16,6 +18,7 @@ import fcntl
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -28,6 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+QUOTED_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 
 def sources() -> list[str]:
@@ -48,14 +52,33 @@ def _nvcc() -> str:
     return path
 
 
+def inputs(src: Path) -> list[Path]:
+    """``src`` and every header it includes with quotes, directly or
+    through another header, each once: what ``nvcc`` reads of the tree."""
+    found, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path not in found:
+            found.append(path)
+            todo += [path.parent / name for name in QUOTED_INCLUDE.findall(path.read_text())]
+    return found
+
+
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where the library of ``<csrc>/<name>.cu`` goes: named by a hash of
+    the flags and of each input's name and bytes, so that a changed source
+    or header gives a new path.  Needs no ``nvcc``."""
+    digest = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for path in inputs(csrc / f"{name}.cu"):
+        digest.update(b"\0" + path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source and
+    """Compile ``csrc/<name>.cu`` unless a library of the same inputs and
     flags exists; return the library's path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,4 +1,5 @@
-"""RMSNorm over the last dim: a Triton kernel and its plain version.
+"""RMSNorm over the last dim: a Triton forward, a CUDA backward, and their
+plain versions.
 
 Counterpart of ``operator_forge/tpu/demo.py::_rmsnorm`` (lines 71-73):
 ``x / sqrt(mean(x²) + 1e-6) * gain`` in f32.
@@ -14,21 +15,24 @@ there is no tensor-core work, only a row reduction and an elementwise pass.
 
 The backward is the transpose of the same lines.  With ``xhat = x / norm``
 and ``u = dy * gain``: ``dx = (u - xhat * mean(u * xhat)) / norm`` per row
-and ``dgain = sum over rows of dy * xhat``, all in f32.  Its bound at
-DemoConfig() (x, dy f32 [512, 128] read, dx written, gain and dgain): it
-moves 787,456 B, 0.24 us at 3.35 TB/s, again far below one launch.  Design:
-one program per row recomputes the norm as the forward does, writes dx and
-its row's ``dy * xhat`` to a scratch of x's size; a second launch sums the
-scratch per column over the rows in a fixed order.  No atomics, so dgain
-repeats bit for bit.  ``rmsnorm`` ties the two directions together as an
-autograd ``Function``.
+and ``dgain = sum over rows of dy * xhat``, all in f32.  Its kernel is CUDA
+C++, ``csrc/rmsnorm_bwd.cu``: one launch of one thread-block cluster of
+16 blocks (``cluster()``), which writes dx row by row and sums dgain's columns
+first in each block's shared memory and then across the cluster through
+distributed shared memory, which Triton does not reach.  No scratch in
+device memory, no atomics: dgain repeats bit for bit.  The source's note
+has its bound and design.  ``rmsnorm`` ties the two directions together as
+an autograd ``Function``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
+
+from . import build
 
 EPS = 1e-6
 MAX_COLS = 16384
@@ -73,36 +77,7 @@ def _kernel():
         gain = tl.load(gain_ptr + cols, mask=inside, other=0.0)
         tl.store(y_ptr + row * n_cols + cols, tl.div_rn(x, norm) * gain, mask=inside)
 
-    @triton.jit
-    def rmsnorm_bwd_rows_kernel(x_ptr, gain_ptr, dy_ptr, dx_ptr, part_ptr, n_cols,
-                                eps, BLOCK: tl.constexpr):
-        row = tl.program_id(0)
-        cols = tl.arange(0, BLOCK)
-        inside = cols < n_cols
-        at = row * n_cols + cols
-        x = tl.load(x_ptr + at, mask=inside, other=0.0)
-        d = n_cols.to(tl.float32)
-        norm = tl.sqrt_rn(tl.div_rn(tl.sum(x * x, axis=0), d) + eps)
-        xhat = tl.div_rn(x, norm)
-        dy = tl.load(dy_ptr + at, mask=inside, other=0.0)
-        u = dy * tl.load(gain_ptr + cols, mask=inside, other=0.0)
-        mean_ux = tl.div_rn(tl.sum(u * xhat, axis=0), d)
-        tl.store(dx_ptr + at, tl.div_rn(u - xhat * mean_ux, norm), mask=inside)
-        tl.store(part_ptr + at, dy * xhat, mask=inside)
-
-    @triton.jit
-    def column_sum_kernel(part_ptr, out_ptr, n_rows, n_cols,
-                          ROWS: tl.constexpr, COLS: tl.constexpr):
-        cols = tl.program_id(0) * COLS + tl.arange(0, COLS)
-        acc = tl.zeros([ROWS, COLS], dtype=tl.float32)
-        for r0 in range(0, n_rows, ROWS):
-            rows = r0 + tl.arange(0, ROWS)
-            inside = (rows[:, None] < n_rows) & (cols[None, :] < n_cols)
-            acc += tl.load(part_ptr + rows[:, None] * n_cols + cols[None, :],
-                           mask=inside, other=0.0)
-        tl.store(out_ptr + cols, tl.sum(acc, axis=0), mask=cols < n_cols)
-
-    return triton, rmsnorm_kernel, rmsnorm_bwd_rows_kernel, column_sum_kernel
+    return triton, rmsnorm_kernel
 
 
 def _check(x: torch.Tensor, gain: torch.Tensor, what: str) -> bool:
@@ -131,7 +106,7 @@ def rmsnorm_fwd(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
     d = x.shape[-1]
     if _check(x, gain, "rmsnorm"):
         return rmsnorm_ref(x, gain)
-    triton, kernel, _, _ = _kernel()
+    triton, kernel = _kernel()
     y = torch.empty_like(x)
     block = triton.next_power_of_2(d)
     with torch.cuda.device(x.device):
@@ -142,14 +117,29 @@ def rmsnorm_fwd(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
     return y
 
 
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = build.library("rmsnorm_bwd")
+    lib.rmsnorm_bwd_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.rmsnorm_bwd_f32.restype = ctypes.c_int
+    lib.rmsnorm_bwd_cluster.argtypes = []
+    lib.rmsnorm_bwd_cluster.restype = ctypes.c_int
+    return lib
+
+
+def cluster() -> int:
+    """The blocks of the thread-block cluster the backward kernel runs on
+    (builds the kernel)."""
+    return _library().rmsnorm_bwd_cluster()
+
+
 def rmsnorm_bwd(
     x: torch.Tensor, gain: torch.Tensor, dy: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(dx, dgain)`` of ``rmsnorm(x, gain)`` for the output gradient
-    ``dy`` (f32, x's shape): the plain version for CPU tensors, the Triton
-    kernels (two launches, counted once) for CUDA tensors."""
+    ``dy`` (f32, x's shape): the plain version for CPU tensors, one launch
+    of the CUDA kernel for CUDA tensors."""
     global bwd_launches
-    d = x.shape[-1]
     if dy.dtype != torch.float32 or dy.shape != x.shape:
         raise ValueError(
             f"rmsnorm_bwd takes dy f32 {tuple(x.shape)}, got {dy.dtype} {tuple(dy.shape)}"
@@ -158,21 +148,16 @@ def rmsnorm_bwd(
         return rmsnorm_bwd_ref(x, gain, dy)
     if dy.device != x.device or not dy.is_contiguous():
         raise ValueError("rmsnorm_bwd's kernel takes contiguous tensors on one CUDA device")
-    triton, _, rows_kernel, sum_kernel = _kernel()
-    n_rows = x.numel() // d
+    d = x.shape[-1]
     dx = torch.empty_like(x)
-    partial = torch.empty_like(x)
     dgain = torch.empty_like(gain)
-    block = triton.next_power_of_2(d)
-    cols = min(32, block)
+    lib = _library()
     with torch.cuda.device(x.device):
-        rows_kernel[(n_rows,)](
-            x, gain, dy, dx, partial, d, EPS, BLOCK=block,
-            num_warps=min(max(block // 128, 1), 8),
+        status = lib.rmsnorm_bwd_f32(
+            x.data_ptr(), gain.data_ptr(), dy.data_ptr(), dx.data_ptr(), dgain.data_ptr(),
+            x.numel() // d, d, torch.cuda.current_stream().cuda_stream,
         )
-        sum_kernel[(triton.cdiv(d, cols),)](
-            partial, dgain, n_rows, d, ROWS=128, COLS=cols, num_warps=4
-        )
+    build.check(lib, status, "rmsnorm_bwd")
     bwd_launches += 1
     return dx, dgain
 
@@ -194,6 +179,6 @@ class RMSNorm(torch.autograd.Function):
 
 def rmsnorm(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
     """RMSNorm with a gradient: f32 ``[..., d]`` and gain ``[d]`` -> f32
-    ``[..., d]``, the forward kernel now and the backward kernels under
+    ``[..., d]``, the forward kernel now and the backward kernel under
     ``backward()`` (the plain versions for CPU tensors)."""
     return RMSNorm.apply(x, gain)

@@ -14,6 +14,7 @@ import sys
 
 import pytest
 import torch
+from torch.autograd import DeviceType
 
 from operator_forge_torch import demo
 from operator_forge_torch.entry import dryrun_multichip, train_entry
@@ -108,7 +109,11 @@ def test_attention_bwd_kernel_matches_plain(cuda, b, s, n_heads, head_dim):
         assert within_ulps(got[..., cols], want[..., cols], 2)
 
 
-@pytest.mark.parametrize("shape", [(512, 128), (3, 5, 100), (7, 1000)])
+# DemoConfig()'s [512, 128]; one row; 4096 rows; the widest rows; row
+# counts that do not divide among the cluster's blocks (37, 15, 7 rows)
+@pytest.mark.parametrize(
+    "shape", [(512, 128), (3, 5, 100), (7, 1000), (1, 128), (4096, 128), (64, 16384), (37, 128)]
+)
 def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape):
     """dx and dgain within rtol 1e-5 and 1e-6 of each one's max: f32, sums
     in another order."""
@@ -245,7 +250,8 @@ def ring_inputs(shape, case, device, dtype=torch.float32, seed=30):
     "shape, dtype",
     [((8, 4, 16, 32), torch.float32), ((1, 4, 256, 32), torch.float32),
      ((2, 3, 17, 16), torch.float32), ((2, 3, 17, 16), torch.bfloat16),
-     ((1, 2, 1024, 128), torch.float32)],
+     ((1, 2, 1024, 128), torch.float32), ((8, 4, 16, 32), torch.bfloat16),
+     ((4, 4, 33, 32), torch.float32)],
 )
 def test_ring_step_kernel_matches_plain(cuda, shape, dtype, case):
     """The carry within rtol and atol 2e-5 of the plain version (f32 sums
@@ -266,6 +272,37 @@ def test_ring_step_kernel_matches_plain(cuda, shape, dtype, case):
         assert carry_close(g, w)
     if case == "later":
         assert all(torch.equal(g, c) for g, c in zip(got, carry))
+
+
+def _cuda_kernels(fn) -> list[str]:
+    """Names of the device activities the profiler records in one call of
+    ``fn``, after one call outside the trace (the build, the first
+    launch)."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def test_rmsnorm_bwd_is_one_kernel(cuda):
+    """One call of ``rmsnorm_bwd`` runs one CUDA kernel: dx and dgain come
+    from one launch, with no second pass and no copy."""
+    x, dy = _normal((512, 128), 22, cuda), _normal((512, 128), 23, cuda)
+    gain = _normal((128,), 24, cuda)
+    kernels = _cuda_kernels(lambda: rmsnorm.rmsnorm_bwd(x, gain, dy))
+    assert len(kernels) == 1, kernels
+
+
+@pytest.mark.parametrize("case", ["earlier", "later"])
+def test_ring_step_is_one_kernel(cuda, case):
+    """One call of ``ring_step`` runs one CUDA kernel, also for a later
+    block, whose blocks exit at once."""
+    (q, k, v, *carry), my, origin = ring_inputs((8, 4, 16, 32), case, cuda)
+    kernels = _cuda_kernels(lambda: ra.ring_step(q, k, v, *carry, my, origin))
+    assert len(kernels) == 1, kernels
 
 
 def test_dryrun_multichip_on_one_card(cuda):

@@ -295,6 +295,17 @@ class TestWrappersOnCpu:
         with pytest.raises(ValueError):
             rmsnorm.rmsnorm_bwd(x, gain[:32], dy)
 
+    @pytest.mark.parametrize("on_meta", ["x", "gain", "dy", "all"])
+    def test_rmsnorm_bwd_rejects_a_device_neither_cpu_nor_cuda(self, on_meta):
+        """A tensor on ``meta`` raises: the plain version serves CPU tensors
+        only and is never a fallback for another device."""
+        args = {"x": torch.ones(4, 64), "gain": torch.ones(64), "dy": torch.ones(4, 64)}
+        args = {k: t.to("meta") if on_meta in (k, "all") else t for k, t in args.items()}
+        before = rmsnorm.bwd_launches
+        with pytest.raises(ValueError):
+            rmsnorm.rmsnorm_bwd(args["x"], args["gain"], args["dy"])
+        assert rmsnorm.bwd_launches == before
+
     def test_gelu(self):
         x = torch.from_numpy(_normal((64, 128), 33, scale=3.0)).bfloat16()
         dy = torch.from_numpy(_normal((64, 128), 34)).bfloat16()

@@ -131,6 +131,19 @@ def test_ring_step_rejects_what_the_kernel_does_not_take(name):
         ra.ring_step(*_bad(name))
 
 
+@pytest.mark.parametrize("on_meta", ["q", "v_blk", "m", "num", "all"])
+def test_ring_step_rejects_a_device_neither_cpu_nor_cuda(on_meta):
+    """A tensor on ``meta`` raises: the plain version serves CPU tensors
+    only and is never a fallback for another device."""
+    names = ("q", "k_blk", "v_blk", "m", "num", "den")
+    args = _bad("none")[:6]
+    args = [t.to("meta") if on_meta in (n, "all") else t for n, t in zip(names, args)]
+    before = ra.launches
+    with pytest.raises(ValueError):
+        ra.ring_step(*args, 0, 0)
+    assert ra.launches == before
+
+
 def test_replayed_ring_schedule_matches_dense():
     """The 4-rank ring's schedule in one process: at step j rank r holds
     block (r - j) % 4; each block step through ``ring_step``, then num /
