@@ -20,7 +20,9 @@ Phases, each of which exits non-zero on a failed check:
       saved outputs), also from a CUDA graph; print one JSON line per
       kernel, then the kernels ranked by device time over their PyTorch
       call's, the RMSNorm backward's cluster size, and the ring step's
-      time on longer blocks beside SDPA's;
+      time on longer blocks beside SDPA's.  The ring's backward step is
+      checked at every mask case at five shapes, one past each former cap.
+      Then each kernel past its former cap (``domain_checks``);
   (d) serve requests: ``entry()``'s forward on seeded token batches, each
       checked against the same forward on the CPU (plain versions), with
       every kernel's launch count read around those calls; print the
@@ -31,17 +33,25 @@ Phases, each of which exits non-zero on a failed check:
       print the step's median time and tokens/s;
   (f) open an NCCL process group of one rank (a ``file://`` rendezvous in
       a temporary directory) for (g) and (h);
+  (e') the wide step: ``loss_fn``, ``value_and_grad`` and one
+      ``train_step`` at ``DemoConfig(vocab=32000, seq_len=2048, batch=2)``
+      (past cross entropy's and attention's former caps), with exact launch
+      counts, against the same step on the CPU;
   (g) ring attention: the 4-rank ring's schedule replayed in one process
       (at step j rank r holds block (r - j) % 4, every block step through
       the kernel), and the real ``ring_attention`` on the group of one,
       each against ``dense_causal_attention``; the replay checks the
-      kernel and the merge, not NCCL;
+      kernel and the merge, not NCCL.  Then the ring's gradient the same
+      two ways (the replay with a backward schedule of its own), against
+      autograd of ``dense_causal_attention`` at [8, 4, 64, 32],
+      [1, 4, 1024, 32] and [1, 4, 4096, 32], with n backward steps a rank
+      for each backward;
   (h) the sharded train step on the (1, 1) mesh at ``DemoConfig()``, 3
       steps with per-step launch counts, the first against ``train_step``
       on the same parameters and tokens; ``run_dryrun(1)`` in this process
       and then ``entry.dryrun_multichip(1)``, which spawns its own rank;
-  (i) print ``{"kernels": [...]}``, launches summed over (d), (e), (g) and
-      (h), then, last, the device line.
+  (i) print ``{"kernels": [...]}``, launches summed over (d), (e), (e'),
+      (g) and (h), then, last, the device line.
 It imports nothing of JAX: the card's machine has none.
 """
 
@@ -64,8 +74,8 @@ from torch.distributed.device_mesh import init_device_mesh
 from operator_forge_torch import demo
 from operator_forge_torch.entry import dryrun_multichip, entry, train_entry
 from operator_forge_torch.kernels import (
-    attention, bf16_ulp, build, carry_close, gelu, rmsnorm, run_twice, step_tolerance,
-    within_ulps,
+    attention, bf16_ulp, build, carry_close, gelu, grads_close, rmsnorm, run_twice,
+    step_tolerance, within_ulps,
 )
 from operator_forge_torch.kernels import cross_entropy as ce
 from operator_forge_torch.kernels import ring_attention as ra
@@ -94,7 +104,13 @@ COUNTERS = {
     "cross_entropy": (ce, "launches"),
     "cross_entropy_bwd": (ce, "bwd_launches"),
     "ring_attention_step": (ra, "launches"),
+    "ring_attention_step_bwd": (ra, "bwd_launches"),
 }
+# the ring's gradient is checked at these [batch, heads, seq, head_dim]
+RING_GRAD_SHAPES = ((1, 4, 1024, 32), (1, 4, 4096, 32))
+# the wide phase: Llama 2's vocabulary and a sequence of 2048, the other
+# widths DemoConfig()'s
+WIDE = dict(vocab=32000, seq_len=2048, batch=2)
 
 
 def fail(message: str) -> None:
@@ -209,13 +225,23 @@ def main_path_inputs(config: demo.DemoConfig) -> dict:
     }
 
 
-def sdpa_backward(q, k, v, dout):
-    """SDPA's causal backward op alone, on the saved outputs of the forward
-    that SDPA picks for these inputs, run once here: (the backend's name,
-    a call that launches only the backward)."""
+def sdpa_backward(q, k, v, dout, mask=None):
+    """SDPA's backward op alone, causal or under a boolean ``mask``, on the
+    saved outputs of the forward that SDPA picks for these inputs, run once
+    here: (the backend's name, a call that launches only the backward)."""
     aten = torch.ops.aten
+    causal = mask is None
     picked = F.scaled_dot_product_attention(
-        q.detach().requires_grad_(), k, v, is_causal=True).grad_fn.name()
+        q.detach().requires_grad_(), k, v, attn_mask=mask, is_causal=causal).grad_fn.name()
+    if not causal:
+        if "Efficient" not in picked:
+            fail(f"SDPA picked {picked} under a mask, which has no backward op to time alone")
+        bias = torch.zeros(mask.shape, device=q.device).masked_fill(~mask, -math.inf)
+        bias = bias.expand(q.shape[0], q.shape[1], *mask.shape).contiguous()
+        out, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+            q, k, v, bias, True, 0.0, False)
+        return picked, lambda: aten._scaled_dot_product_efficient_attention_backward(
+            dout, q, k, v, bias, out, lse, seed, offset, 0.0, [True, True, True, False], False)
     if "Flash" in picked:
         out, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = \
             aten._scaled_dot_product_flash_attention(q, k, v, 0.0, True)
@@ -433,6 +459,161 @@ def ring_row(config: demo.DemoConfig) -> dict:
     )
 
 
+def ring_bwd_case(shape, dtype, case, g):
+    """The inputs of one backward ring step on the card: q, k, v and dout,
+    the final (m, den) of a forward over the case's blocks (the plain
+    version), each row's D, and accumulators that already hold sums."""
+    (q, k, v), carry, my, origin = ring_case(shape, dtype, case, g)
+    m, num, den = ra.ring_step_ref(q, k, v, *carry, my, origin)
+    dout = torch.randn(shape, generator=g).cuda().to(dtype)
+    big_d = (dout.float() * (num / den)).sum(dim=-1, keepdim=True)
+    acc = [torch.randn(shape, generator=g).cuda() for _ in range(3)]
+    return (q, k, v, dout, m, den, big_d), my, origin, acc
+
+
+# the backward step's shapes: the ring of DemoConfig()'s heads over 4 ranks
+# (f32 and bf16), longer blocks, one past the forward's former cap of 1024
+# keys, and a head past the former cap of 128
+RING_BWD_SHAPES = (((8, 4, 16, 32), torch.float32), ((8, 4, 16, 32), torch.bfloat16),
+                   ((1, 4, 256, 32), torch.float32), ((1, 4, 2048, 32), torch.float32),
+                   ((1, 2, 64, 160), torch.float32))
+
+
+def ring_bwd_row() -> dict:
+    """The ring's backward block step at every mask case and every shape
+    of ``RING_BWD_SHAPES``: dq, dk and dv within ``grads_close`` of the
+    plain version, the same bits from two launches, a later block's
+    accumulators left bit for bit.  The line times the earlier block at the
+    first shape; each case's times go on a line of their own."""
+    g = torch.Generator().manual_seed(17)
+    worst, cases = 0.0, {}
+    first = RING_BWD_SHAPES[0][0]
+    for shape, dtype in RING_BWD_SHAPES:
+        for case in RING_CASES:
+            inputs, my, origin, acc = ring_bwd_case(shape, dtype, case, g)
+            want = ra.ring_step_bwd_ref(*inputs, my, origin, *acc)
+            got, same = run_twice(lambda: ra.ring_step_bwd(*inputs, my, origin, *(t.clone() for t in acc)))
+            where = f"ring_attention_step_bwd {case} {tuple(shape)} {dtype}"
+            if not same:
+                fail(f"{where}: two launches on the same inputs differ")
+            if not all(grads_close(a, b) for a, b in zip(got, want)):
+                fail(f"{where} disagrees with its plain version beyond rtol and atol 2e-5 of its max")
+            if case == "later" and not all(torch.equal(a, b) for a, b in zip(got, acc)):
+                fail(f"{where}: a fully masked block changed the accumulators")
+            worst = max([worst] + [float((a - b).abs().max()) for a, b in zip(got, want)])
+            if shape == first and dtype == torch.float32:
+                scratch = [t.clone() for t in acc]
+                cases[case] = {"graph_ms": graph_ms(lambda: ra.ring_step_bwd(*inputs, my, origin, *scratch))}
+    print(json.dumps({"ring_attention_step_bwd_cases": {"shape": list(first), **cases}}))
+
+    inputs, my, origin, acc = ring_bwd_case(first, torch.float32, "earlier", g)
+    scratch = [t.clone() for t in acc]
+    q, k, v, dout = inputs[:4]
+    b, h, s, d = first
+    every_key = torch.ones(s, s, dtype=torch.bool, device="cuda")  # an earlier block
+    picked, sdpa_bwd = sdpa_backward(q, k, v, dout, every_key)
+    print(json.dumps({"ring_attention_step_bwd_yardstick": picked}))
+    return dict(
+        name="ring_attention_step_bwd", route="cuda",
+        source="operator_forge_torch/csrc/ring_attention.cu",
+        replaces="operator_forge/tpu/demo.py:276",
+        fn=lambda: ra.ring_step_bwd(*inputs, my, origin, *scratch),
+        repeat=lambda: ra.ring_step_bwd(*inputs, my, origin, *(t.clone() for t in acc)),
+        plain=lambda: ra.ring_step_bwd_ref(*inputs, my, origin, *acc),
+        library=sdpa_bwd,
+        err=torch.tensor([worst]),
+        tolerance="rtol and atol 2e-5 of each output's max at every mask case; "
+                  "a later block keeps the accumulators' bits",
+        ok=True,
+        # read q, k, v, dout and m, den, D; read and write dq, dk, dv; five
+        # products of 2 * d per (query, key) pair an earlier block sees
+        bound=bound(4 * q.numel() * 4 + 3 * b * h * s * 4 + 6 * q.numel() * 4,
+                    5 * 2 * d * b * h * s * s, F32_FLOP_PER_S),
+    )
+
+
+def ring_step_f64(q, k, v, m, num, den, my: int, origin: int) -> tuple:
+    """The ring step in float64 (the reference's lines, without f32
+    rounding): what the kernel and the plain version are both measured
+    against at a long block."""
+    s, d = q.shape[-2:]
+    scores = (q.double() @ k.double().transpose(-1, -2)) / math.sqrt(d)
+    q_pos = my * s + torch.arange(s, device=q.device)[:, None]
+    k_pos = origin * s + torch.arange(s, device=q.device)[None, :]
+    scores = torch.where(k_pos <= q_pos, scores, -math.inf)
+    new_m = torch.maximum(m.double(), scores.amax(dim=-1, keepdim=True))
+    shift = torch.where(torch.isinf(new_m), 0.0, new_m)
+    correction, probs = torch.exp(m.double() - shift), torch.exp(scores - shift)
+    return (new_m, num.double() * correction + probs @ v.double(),
+            den.double() * correction + probs.sum(dim=-1, keepdim=True))
+
+
+def domain_checks() -> None:
+    """Each kernel against its plain version past its former cap, at the
+    widths the reference computes: cross entropy over Llama 2's 32000
+    tokens, RMSNorm over 20480 columns, attention at seq 2048 and at heads
+    of 256 (Gemma 7B's), the ring step at a block of 2048 keys.  The
+    tolerances are the kernels' rows'; these launches count on no path."""
+    g = torch.Generator().manual_seed(19)
+
+    def normal(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g)).cuda()
+
+    checks = []
+    logits, targets = normal(256, 32000, scale=2.0), torch.randint(0, 32000, (256,), generator=g).cuda()
+    grad = torch.ones(()).cuda()
+    loss, lse = ce.cross_entropy_fwd(logits, targets)
+    want_loss, want_lse = ce.cross_entropy_ref(logits, targets)
+    dx, want_dx = (ce.cross_entropy_bwd(logits, targets, lse, grad),
+                   ce.cross_entropy_bwd_ref(logits, targets, want_lse, grad))
+    checks.append(("cross_entropy", [256, 32000], float((dx - want_dx).abs().max()),
+                   bool((loss - want_loss).abs() <= 1e-5 * want_loss.abs())
+                   and bool(((dx - want_dx).abs() <= 1e-7).all())))
+
+    x, gain, dy = normal(256, 20480, scale=3.0), normal(20480), normal(256, 20480)
+    y, want_y = rmsnorm.rmsnorm_fwd(x, gain), rmsnorm.rmsnorm_ref(x, gain)
+    checks.append(("rmsnorm", [256, 20480], float((y - want_y).abs().max()),
+                   bool(((y - want_y).abs() <= 1e-6 + 1e-5 * want_y.abs()).all())))
+    got, want = rmsnorm.rmsnorm_bwd(x, gain, dy), rmsnorm.rmsnorm_bwd_ref(x, gain, dy)
+    checks.append(("rmsnorm_bwd", [256, 20480], max(float((a - b).abs().max()) for a, b in zip(got, want)),
+                   all(bool(((a - b).abs() <= 1e-6 * b.abs().max() + 1e-5 * b.abs()).all())
+                       for a, b in zip(got, want))))
+
+    for b, s, n_heads, hd in ((1, 2048, 4, 32), (2, 128, 2, 256)):
+        qkv = normal(b, s, 3 * n_heads * hd).bfloat16()
+        dout = normal(b, s, n_heads * hd).bfloat16()
+        shape = [b, s, n_heads, hd]
+        path = "tiles" if attention.tiles(b, s, n_heads, hd) else "rows"
+        out, want = attention.causal_attention_fwd(qkv, n_heads), attention.causal_attention_ref(qkv, n_heads)
+        checks.append((f"causal_attention ({path})", shape, float((out.float() - want.float()).abs().max()),
+                       within_ulps(out, want, 2)))
+        got, want = (attention.causal_attention_bwd(qkv, dout, n_heads),
+                     attention.causal_attention_bwd_ref(qkv, dout, n_heads))
+        d = n_heads * hd
+        parts = [(got[..., i * d:(i + 1) * d], want[..., i * d:(i + 1) * d]) for i in range(3)]
+        checks.append((f"causal_attention_bwd ({path})", shape, float((got.float() - want.float()).abs().max()),
+                       all(within_ulps(a, w, 2) for a, w in parts)))
+
+    (q, k, v), carry, my, origin = ring_case((1, 4, 2048, 32), torch.float32, "earlier", g)
+    got = ra.ring_step(q, k, v, *(t.clone() for t in carry), my, origin)
+    want = ra.ring_step_ref(q, k, v, *carry, my, origin)
+    exact = ring_step_f64(q, k, v, *carry, my, origin)
+    print(json.dumps({"ring_attention_step_vs_float64": {
+        "shape": [1, 4, 2048, 32], **{who: {name: float((t.double() - x).abs().max())
+                                            for name, t, x in zip(("m", "num", "den"), ts, exact)}
+                                      for who, ts in (("kernel", got), ("plain", want))}}}))
+    # past 1024 keys the atol is 2e-5 of each part's max (carry_close's
+    # scaled rule): the plain version's own f32 sums round by more
+    checks.append(("ring_attention_step", [1, 4, 2048, 32],
+                   max(float((a - b).abs()[torch.isfinite(b)].max()) for a, b in zip(got, want)),
+                   all(carry_close(a, b, scaled=True) for a, b in zip(got, want))))
+    torch.cuda.synchronize()
+    for name, shape, err, ok in checks:
+        if not ok:
+            fail(f"{name} at {shape} disagrees with its plain version: max |err| {err:.3e}")
+    print(json.dumps({"domain": [{"name": n, "shape": sh, "max_abs_err": e} for n, sh, e, _ in checks]}))
+
+
 def phase_kernels(inputs: dict, config: demo.DemoConfig) -> list[dict]:
     rows = []
 
@@ -495,6 +676,8 @@ def phase_kernels(inputs: dict, config: demo.DemoConfig) -> list[dict]:
     ))
     rows += backward_rows(inputs)
     rows.append(ring_row(config))
+    rows.append(ring_bwd_row())
+    domain_checks()
 
     out = []
     for row in rows:
@@ -594,6 +777,7 @@ def step_launches(config: demo.DemoConfig) -> dict:
         "rmsnorm": 2 * config.n_layers, "rmsnorm_bwd": 2 * config.n_layers,
         "gelu_tanh": config.n_layers, "gelu_tanh_bwd": config.n_layers,
         "cross_entropy": 1, "cross_entropy_bwd": 1, "ring_attention_step": 0,
+        "ring_attention_step_bwd": 0,
     }
 
 
@@ -713,6 +897,142 @@ def phase_ring(config: demo.DemoConfig) -> dict:
     return launches
 
 
+def replay_ring_grad(q, k, v, dout, n: int) -> tuple:
+    """The ``n``-rank ring's forward and backward schedules in one process,
+    every block step through the kernels: the forward as ``replay_ring``;
+    then at backward step j rank r holds block (r - j) % n with that
+    block's dk and dv, which so gather the ranks' shares in the real
+    ring's order.  Returns dq, dk, dv with the blocks joined along the
+    sequence."""
+    b, h, seq, d = q.shape
+    s = seq // n
+    qs, ks, vs, dos = ([c.contiguous() for c in t.chunk(n, dim=2)] for t in (q, k, v, dout))
+    stats = []
+    for r in range(n):
+        m = torch.full((b, h, s, 1), -math.inf, device=q.device)
+        num = torch.zeros((b, h, s, d), device=q.device)
+        den = torch.zeros((b, h, s, 1), device=q.device)
+        for j in range(n):
+            origin = (r - j) % n
+            ra.ring_step(qs[r], ks[origin], vs[origin], m, num, den, r, origin)
+        stats.append((m, den, (dos[r].float() * (num / den)).sum(dim=-1, keepdim=True)))
+    dq, dk, dv = ([torch.zeros((b, h, s, d), device=q.device) for _ in range(n)] for _ in range(3))
+    for j in range(n):
+        for r in range(n):
+            origin = (r - j) % n
+            ra.ring_step_bwd(qs[r], ks[origin], vs[origin], dos[r], *stats[r], r, origin,
+                             dq[r], dk[origin], dv[origin])
+    return tuple(torch.cat(t, dim=2) for t in (dq, dk, dv))
+
+
+def ring_attention_grad(q, k, v, dout, mesh) -> tuple:
+    """``backward()`` through ``demo.ring_attention`` over ``mesh``'s
+    ``seq`` dim: dq, dk, dv."""
+    live = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    demo.ring_attention(*live, mesh, axis="seq").backward(dout)
+    return tuple(t.grad for t in live)
+
+
+def phase_ring_grad(config: demo.DemoConfig) -> dict:
+    """The ring's gradient: the replayed 4-rank ring's backward and
+    ``backward()`` through ``ring_attention`` on the group of one, at
+    ``DemoConfig()``'s full width [8, 4, 64, 32] and at
+    ``RING_GRAD_SHAPES``, each against autograd of
+    ``dense_causal_attention`` on the card within ``grads_close`` (rtol and
+    atol 2e-5 of each gradient's max); exactly n backward steps a rank for
+    each backward."""
+    g = torch.Generator().manual_seed(23)
+    shapes = [(config.batch, config.n_heads, config.seq_len, config.head_dim), *RING_GRAD_SHAPES]
+    inputs = [[torch.randn(shape, generator=g).cuda() for _ in range(4)] for shape in shapes]
+    dense = []
+    for q, k, v, dout in inputs:
+        live = [t.clone().requires_grad_() for t in (q, k, v)]
+        demo.dense_causal_attention(*live).backward(dout)
+        dense.append([t.grad for t in live])
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("seq",))
+    result, launches = {}, dict.fromkeys(COUNTERS, 0)
+    for what, n, run in (
+        (f"replayed {RING_RANKS}-rank ring", RING_RANKS,
+         lambda q, k, v, dout: replay_ring_grad(q, k, v, dout, RING_RANKS)),
+        ("ring_attention on an NCCL group of one", 1,
+         lambda q, k, v, dout: ring_attention_grad(q, k, v, dout, mesh)),
+    ):
+        reset_counts()
+        grads = [run(*x) for x in inputs]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for name in ("ring_attention_step", "ring_attention_step_bwd"):
+            if counts[name] != n * n * len(shapes):
+                fail(f"{what}: {name} launched {counts[name]} times, not {n} a rank for each of "
+                     f"{len(shapes)} calls")
+        errs = []
+        for shape, got, want in zip(shapes, grads, dense):
+            for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                if a.shape != w.shape or not bool(torch.isfinite(a).all()):
+                    fail(f"{what}: {name} at {shape} shaped {tuple(a.shape)}, finite {bool(torch.isfinite(a).all())}")
+                if not grads_close(a, w):
+                    fail(f"{what}: {name} at {shape} differs from dense attention's by "
+                         f"{float((a - w).abs().max()):.3e} (max |g| {float(w.abs().max()):.3e})")
+            errs.append(max(float((a - w).abs().max() / w.abs().max()) for a, w in zip(got, want)))
+        result[what] = {"shapes": shapes, "launches": counts["ring_attention_step_bwd"],
+                        "max_err_of_max_grad": errs}
+        launches = {name: launches[name] + counts[name] for name in COUNTERS}
+    print(json.dumps({"ring_grad": result}))
+    return launches
+
+
+def phase_wide() -> dict:
+    """``loss_fn``, ``value_and_grad`` and one ``train_step`` at ``WIDE``
+    (Llama 2's vocabulary of 32000 and a sequence of 2048: past cross
+    entropy's and attention's former caps), on the card, with every
+    kernel's launches counted, against the same step on the CPU with the
+    plain versions: the losses within 5e-5 and each new parameter within
+    ``step_tolerance``."""
+    config = demo.DemoConfig(**WIDE)
+    params = demo.init_params(config, torch.Generator().manual_seed(0), "cuda")
+    tokens = torch.randint(0, config.vocab, (config.batch, config.seq_len + 1),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    reset_counts()
+    loss = demo.loss_fn(params, tokens, config)
+    vg_loss, _ = demo.value_and_grad(params, tokens, config)
+    t0 = time.perf_counter()
+    new, step_loss = demo.train_step(params, tokens, config)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = read_counts()
+    per_step = step_launches(config)
+    forward = {"causal_attention": config.n_layers, "rmsnorm": 2 * config.n_layers,
+               "gelu_tanh": config.n_layers, "cross_entropy": 1}
+    for name, count in launches.items():
+        want = forward.get(name, 0) + 2 * per_step[name]
+        if count != want:
+            fail(f"wide phase: {name} launched {count} times, not {want}")
+
+    t0 = time.perf_counter()
+    cpu_params = demo.tree_map(lambda t: t.cpu(), params)
+    want_loss, grads = demo.value_and_grad(cpu_params, tokens.cpu(), config)
+    want_new = demo.tree_map(lambda p, g: p - config.learning_rate * g, cpu_params, grads)
+    cpu_s = time.perf_counter() - t0
+    errs = [abs(float(x) - float(want_loss)) for x in (loss, vg_loss, step_loss)]
+    if max(errs) > 5e-5:
+        fail(f"wide phase: losses {[float(x) for x in (loss, vg_loss, step_loss)]} differ from "
+             f"the CPU's {float(want_loss)} by more than 5e-5")
+    worst = 0.0
+    for i, (got, want, p, g) in enumerate(zip(*map(demo.tree_leaves, (new, want_new, cpu_params, grads)))):
+        tol = step_tolerance(p, g, config.learning_rate)
+        err = (got.cpu() - want).abs()
+        if not bool((err <= tol).all()):
+            fail(f"wide phase: parameter leaf {i} differs from the CPU's by {float(err.max()):.3e}")
+        worst = max(worst, float((err / tol).max()))
+    print(json.dumps({"wide": {
+        "config": WIDE, "loss": float(step_loss), "loss_err_vs_cpu": max(errs),
+        "param_err_vs_cpu_of_tolerance": worst, "attention_path":
+        "tiles" if attention.tiles(config.batch, config.seq_len, config.n_heads, config.head_dim) else "rows",
+        "step_s": step_s, "cpu_step_s": cpu_s, "launches": launches,
+    }}))
+    return launches
+
+
 def phase_shard(config: demo.DemoConfig) -> dict:
     """``sharded_train_step`` on the (1, 1) mesh against ``train_step``,
     then the dryrun in this process and through its entry point."""
@@ -786,13 +1106,13 @@ def main() -> None:
     inputs = main_path_inputs(config)
     phase_build(inputs)
     kernels = phase_kernels(inputs, config)
-    paths = [phase_serve(config), phase_train(config)]
+    paths = [phase_serve(config), phase_train(config), phase_wide()]
     torch.cuda.set_device(0)
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "rendezvous"),
                                 rank=0, world_size=1)
         try:
-            paths += [phase_ring(config), phase_shard(config)]
+            paths += [phase_ring(config), phase_ring_grad(config), phase_shard(config)]
         finally:
             dist.destroy_process_group()
     total = {name: sum(path[name] for path in paths) for name in COUNTERS}

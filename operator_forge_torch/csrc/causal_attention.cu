@@ -77,6 +77,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -88,7 +90,6 @@ constexpr int kChunk = 64;       // keys a forward pass takes at a time
 constexpr int kWarps = 4;        // warps of a block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxHeadDim = 128;
-constexpr int kMaxSeq = 1024;
 constexpr float kMasked = -1e30f;  // the reference's finite mask fill
 
 // ---- PTX wrappers -------------------------------------------------------
@@ -852,9 +853,341 @@ causal_attention_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __rest
   store_warp_sum<kHdp>(partial + kWarps * kRows * ld, dv, dst + 2 * d, stride, kn, hd);
 }
 
-bool valid(int b, int s, int n_heads, int head_dim) {
-  return b >= 1 && b <= 65535 && s >= 1 && s <= kMaxSeq && n_heads >= 1 &&
-         n_heads <= 65535 && head_dim >= 1 && head_dim <= kMaxHeadDim;
+// ---- the rows path: long rows, wide heads, many heads or batches --------
+//
+// One warp per row, f32 FMAs, the other side's rows staged chunk by chunk
+// as f32 ([chunk][hd + 1]) and re-scored in every pass, so it takes any
+// sequence and any head up to kRowsMaxHeadDim.  The cast points are the
+// reference's, as above: score = bf16(q . k) / sqrt(hd) (an IEEE division),
+// a max pass, a sum pass, then y = exp(score - max) / sum and p = bf16(y).
+// Every sum over the other side runs in ascending order from 0, kept for
+// each of the row's columns in shared memory, so a launch repeats bit for
+// bit; the dot products are four FMA chains over the head, and a pair is
+// scored with the same bits wherever it is scored.
+
+constexpr int kRowsChunk = 64;          // most rows of the other side staged at a time
+constexpr int kRowsMaxHeadDim = 3072;   // the widest head whose rows fit in shared memory
+constexpr int kSmemFloats = of::kMaxSmemBytes / sizeof(float);
+
+// the score of a pair from the f32 product: bf16, then / sqrt(hd)
+__device__ __forceinline__ float score_of(float product, float root) {
+  return __fdiv_rn(round_bf16(product), root);
+}
+
+// dS_bf before the product: bf16(y (dP - D) / sqrt(hd))
+__device__ __forceinline__ float grad_score_of(float y, float dp, float big_d, float root) {
+  return round_bf16(__fdiv_rn(__fmul_rn(y, __fsub_rn(dp, big_d)), root));
+}
+
+// Where a block of the rows path is: its plane (head, batch) and first row.
+struct RowsBlock {
+  int head, batch, r0, rows;
+};
+
+__device__ __forceinline__ RowsBlock rows_block(size_t id, int row_blocks, int s, int n_heads) {
+  const size_t plane = id / row_blocks;
+  const int r0 = (int)(id % row_blocks) * kWarps;
+  return {(int)(plane % n_heads), (int)(plane / n_heads), r0, min(kWarps, s - r0)};
+}
+
+// The softmax statistics of query row `row` (q in qr, f32) over keys
+// [0, row] of the block's keys [0, n_keys): the max (from the fill, as the
+// tiles path takes it) and the sum, in two passes that stage K chunk by
+// chunk into ks.  Every warp of the block calls it.
+__device__ __forceinline__ void rows_stats(float& mx, float& l, const float* qr, float* ks,
+                                           const bf16* k_src, size_t stride, int row, bool live,
+                                           int n_keys, int hd, int chunk, bool vec, float root) {
+  const int lane = lane_id(), ld = hd + 1;
+  const int seen = live ? row + 1 : 0;
+  mx = kMasked;
+  for (int k0 = 0; k0 < n_keys; k0 += chunk) {
+    const int kn = min(chunk, n_keys - k0);
+    __syncthreads();
+    of::stage_rows(ks, k_src, stride, k0, kn, hd, ld, vec);
+    __syncthreads();
+    for (int j = k0 + lane; j < min(k0 + kn, seen); j += 32)
+      mx = fmaxf(mx, score_of(of::dot(qr, ks + (j - k0) * ld, hd), root));
+  }
+  mx = of::warp_max(mx);
+  l = 0.0f;
+  for (int k0 = 0; k0 < n_keys; k0 += chunk) {
+    const int kn = min(chunk, n_keys - k0);
+    __syncthreads();
+    of::stage_rows(ks, k_src, stride, k0, kn, hd, ld, vec);
+    __syncthreads();
+    for (int j = k0 + lane; j < min(k0 + kn, seen); j += 32)
+      l += expf(score_of(of::dot(qr, ks + (j - k0) * ld, hd), root) - mx);
+  }
+  l = of::warp_sum(l);
+}
+
+// Forward: one warp per query row; out = bf16(sum_j p_j v_j).
+__global__ void __launch_bounds__(kThreads)
+attention_rows_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int s, int n_heads,
+                      int hd, int chunk, int row_blocks, bool vec) {
+  extern __shared__ float fsmem[];
+  const int warp = threadIdx.x >> 5, lane = lane_id(), ld = hd + 1;
+  const RowsBlock at = rows_block(blockIdx.x, row_blocks, s, n_heads);
+  const int d = n_heads * hd;
+  const size_t stride = 3 * (size_t)d;
+  const bf16* base = qkv + (size_t)at.batch * s * stride + (size_t)at.head * hd;
+  float* ks = fsmem;                 // [chunk][ld]
+  float* vs = ks + chunk * ld;       // [chunk][ld]
+  float* qs = vs + chunk * ld;       // [kWarps][hd]
+  float* acc = qs + kWarps * hd;     // [kWarps][hd]
+  float* pbuf = acc + kWarps * hd;   // [kWarps][chunk]
+  const int row = at.r0 + warp, n_keys = at.r0 + at.rows;
+  const bool live = warp < at.rows;
+  float* qr = qs + warp * hd;
+  float* sum = acc + warp * hd;
+  float* pb = pbuf + warp * chunk;
+  if (live)
+    for (int c = lane; c < hd; c += 32) {
+      qr[c] = __bfloat162float(base[(size_t)row * stride + c]);
+      sum[c] = 0.0f;
+    }
+  const float root = sqrtf((float)hd);
+  float mx, l;
+  rows_stats(mx, l, qr, ks, base + d, stride, row, live, n_keys, hd, chunk, vec, root);
+  const int seen = live ? row + 1 : 0;
+  for (int k0 = 0; k0 < n_keys; k0 += chunk) {
+    const int kn = min(chunk, n_keys - k0), end = min(k0 + kn, seen);
+    __syncthreads();
+    of::stage_rows(ks, base + d, stride, k0, kn, hd, ld, vec);
+    of::stage_rows(vs, base + 2 * d, stride, k0, kn, hd, ld, vec);
+    __syncthreads();
+    if (k0 >= end) continue;
+    for (int j = k0 + lane; j < end; j += 32)
+      pb[j - k0] = round_bf16(
+          __fdiv_rn(expf(score_of(of::dot(qr, ks + (j - k0) * ld, hd), root) - mx), l));
+    __syncwarp();
+    for (int c = lane; c < hd; c += 32) {
+      float a = sum[c];
+      for (int j = k0; j < end; ++j) a = fmaf(pb[j - k0], vs[(j - k0) * ld + c], a);
+      sum[c] = a;
+    }
+    __syncwarp();
+  }
+  if (!live) return;
+  bf16* dst = out + ((size_t)at.batch * s + row) * d + (size_t)at.head * hd;
+  for (int c = lane; c < hd; c += 32) dst[c] = __float2bfloat16(sum[c]);
+}
+
+// Backward, first launch: one warp per query row.  Writes dQ and the row's
+// max, sum and D into stats [3][b][h][s] for the second launch.
+__global__ void __launch_bounds__(kThreads)
+attention_rows_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                         bf16* __restrict__ dqkv, float* __restrict__ stats, int b, int s,
+                         int n_heads, int hd, int chunk, int row_blocks, bool vec) {
+  extern __shared__ float fsmem[];
+  const int warp = threadIdx.x >> 5, lane = lane_id(), ld = hd + 1;
+  const RowsBlock at = rows_block(blockIdx.x, row_blocks, s, n_heads);
+  const int d = n_heads * hd;
+  const size_t stride = 3 * (size_t)d;
+  const bf16* base = qkv + (size_t)at.batch * s * stride + (size_t)at.head * hd;
+  const bf16* dbase = dout + (size_t)at.batch * s * d + (size_t)at.head * hd;
+  float* ks = fsmem;                  // [chunk][ld]
+  float* vs = ks + chunk * ld;        // [chunk][ld]
+  float* own = vs + chunk * ld;       // [kWarps][2][hd]  q and dO
+  float* acc = own + 2 * kWarps * hd; // [kWarps][hd]
+  float* bufs = acc + kWarps * hd;    // [kWarps][chunk]
+  const int row = at.r0 + warp, n_keys = at.r0 + at.rows;
+  const bool live = warp < at.rows;
+  float* qr = own + 2 * warp * hd;
+  float* dor = qr + hd;
+  float* sum = acc + warp * hd;
+  float* dsb = bufs + warp * chunk;
+  if (live)
+    for (int c = lane; c < hd; c += 32) {
+      qr[c] = __bfloat162float(base[(size_t)row * stride + c]);
+      dor[c] = __bfloat162float(dbase[(size_t)row * d + c]);
+      sum[c] = 0.0f;
+    }
+  const float root = sqrtf((float)hd);
+  float mx, l;
+  rows_stats(mx, l, qr, ks, base + d, stride, row, live, n_keys, hd, chunk, vec, root);
+  const int seen = live ? row + 1 : 0;
+  // D = sum_j y_j dP_j, dP = bf16(dO . v)
+  float big_d = 0.0f;
+  for (int k0 = 0; k0 < n_keys; k0 += chunk) {
+    const int kn = min(chunk, n_keys - k0);
+    __syncthreads();
+    of::stage_rows(ks, base + d, stride, k0, kn, hd, ld, vec);
+    of::stage_rows(vs, base + 2 * d, stride, k0, kn, hd, ld, vec);
+    __syncthreads();
+    for (int j = k0 + lane; j < min(k0 + kn, seen); j += 32) {
+      const float y =
+          __fdiv_rn(expf(score_of(of::dot(qr, ks + (j - k0) * ld, hd), root) - mx), l);
+      big_d = fmaf(y, round_bf16(of::dot(dor, vs + (j - k0) * ld, hd)), big_d);
+    }
+  }
+  big_d = of::warp_sum(big_d);
+  // dQ = bf16(sum_j dS_bf_j k_j)
+  for (int k0 = 0; k0 < n_keys; k0 += chunk) {
+    const int kn = min(chunk, n_keys - k0), end = min(k0 + kn, seen);
+    __syncthreads();
+    of::stage_rows(ks, base + d, stride, k0, kn, hd, ld, vec);
+    of::stage_rows(vs, base + 2 * d, stride, k0, kn, hd, ld, vec);
+    __syncthreads();
+    if (k0 >= end) continue;
+    for (int j = k0 + lane; j < end; j += 32) {
+      const float y =
+          __fdiv_rn(expf(score_of(of::dot(qr, ks + (j - k0) * ld, hd), root) - mx), l);
+      dsb[j - k0] = grad_score_of(y, round_bf16(of::dot(dor, vs + (j - k0) * ld, hd)), big_d,
+                                  root);
+    }
+    __syncwarp();
+    for (int c = lane; c < hd; c += 32) {
+      float a = sum[c];
+      for (int j = k0; j < end; ++j) a = fmaf(dsb[j - k0], ks[(j - k0) * ld + c], a);
+      sum[c] = a;
+    }
+    __syncwarp();
+  }
+  if (!live) return;
+  bf16* dst = dqkv + ((size_t)at.batch * s + row) * stride + (size_t)at.head * hd;
+  for (int c = lane; c < hd; c += 32) dst[c] = __float2bfloat16(sum[c]);
+  if (lane == 0) {
+    const size_t plane = (size_t)b * n_heads * s;
+    const size_t r = ((size_t)at.batch * n_heads + at.head) * s + row;
+    stats[r] = mx;
+    stats[plane + r] = l;
+    stats[2 * plane + r] = big_d;
+  }
+}
+
+// Backward, second launch: one warp per key row, over the queries at or
+// after it: dK = bf16(sum_q dS_bf q), dV = bf16(sum_q p dO).
+__global__ void __launch_bounds__(kThreads)
+attention_rows_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                          const float* __restrict__ stats, bf16* __restrict__ dqkv, int b, int s,
+                          int n_heads, int hd, int chunk, int row_blocks, bool vec) {
+  extern __shared__ float fsmem[];
+  const int warp = threadIdx.x >> 5, lane = lane_id(), ld = hd + 1;
+  const RowsBlock at = rows_block(blockIdx.x, row_blocks, s, n_heads);
+  const int d = n_heads * hd;
+  const size_t stride = 3 * (size_t)d;
+  const bf16* base = qkv + (size_t)at.batch * s * stride + (size_t)at.head * hd;
+  const bf16* dbase = dout + (size_t)at.batch * s * d + (size_t)at.head * hd;
+  const size_t plane = (size_t)b * n_heads * s;
+  const float* row_stats = stats + ((size_t)at.batch * n_heads + at.head) * s;
+  float* qs = fsmem;                   // [chunk][ld]  queries
+  float* dos = qs + chunk * ld;        // [chunk][ld]  their dO
+  float* own = dos + chunk * ld;       // [kWarps][2][hd]  k and v
+  float* acc = own + 2 * kWarps * hd;  // [kWarps][2][hd]  dK and dV
+  float* bufs = acc + 2 * kWarps * hd; // [kWarps][2][chunk]  p and dS_bf
+  float* st = bufs + 2 * kWarps * chunk;  // [3][chunk]  the queries' max, sum, D
+  const int row = at.r0 + warp;
+  const bool live = warp < at.rows;
+  float* kr = own + 2 * warp * hd;
+  float* vr = kr + hd;
+  float* dk = acc + 2 * warp * hd;
+  float* dv = dk + hd;
+  float* pb = bufs + 2 * warp * chunk;
+  float* db = pb + chunk;
+  if (live)
+    for (int c = lane; c < hd; c += 32) {
+      kr[c] = __bfloat162float(base[(size_t)row * stride + d + c]);
+      vr[c] = __bfloat162float(base[(size_t)row * stride + 2 * d + c]);
+      dk[c] = dv[c] = 0.0f;
+    }
+  const float root = sqrtf((float)hd);
+  const int first = live ? row : s;  // the queries that see this key: [row, s)
+  for (int q0 = at.r0; q0 < s; q0 += chunk) {
+    const int qn = min(chunk, s - q0);
+    __syncthreads();
+    of::stage_rows(qs, base, stride, q0, qn, hd, ld, vec);
+    of::stage_rows(dos, dbase, d, q0, qn, hd, ld, vec);
+    for (int i = threadIdx.x; i < qn; i += blockDim.x) {
+      st[i] = row_stats[q0 + i];
+      st[chunk + i] = row_stats[plane + q0 + i];
+      st[2 * chunk + i] = row_stats[2 * plane + q0 + i];
+    }
+    __syncthreads();
+    const int from = max(q0, first), to = q0 + qn;
+    if (from >= to) continue;
+    for (int i = from + lane; i < to; i += 32) {
+      const int o = i - q0;
+      const float y = __fdiv_rn(
+          expf(score_of(of::dot(qs + o * ld, kr, hd), root) - st[o]), st[chunk + o]);
+      pb[o] = round_bf16(y);
+      db[o] = grad_score_of(y, round_bf16(of::dot(dos + o * ld, vr, hd)), st[2 * chunk + o],
+                            root);
+    }
+    __syncwarp();
+    for (int c = lane; c < hd; c += 32) {
+      float a_k = dk[c], a_v = dv[c];
+      for (int i = from; i < to; ++i) {
+        a_k = fmaf(db[i - q0], qs[(i - q0) * ld + c], a_k);
+        a_v = fmaf(pb[i - q0], dos[(i - q0) * ld + c], a_v);
+      }
+      dk[c] = a_k;
+      dv[c] = a_v;
+    }
+    __syncwarp();
+  }
+  if (!live) return;
+  bf16* dst = dqkv + ((size_t)at.batch * s + row) * stride + (size_t)at.head * hd;
+  for (int c = lane; c < hd; c += 32) {
+    dst[d + c] = __float2bfloat16(dk[c]);
+    dst[2 * d + c] = __float2bfloat16(dv[c]);
+  }
+}
+
+// The rows path's launch shape: rows of other side staged at a time, and
+// the grid's row blocks a plane (0 where either does not fit).
+struct RowsShape {
+  int chunk, row_blocks;
+  size_t smem;
+};
+
+RowsShape rows_shape(int b, int s, int n_heads, int hd, int fixed, int per_row) {
+  const long long row_blocks = (s + kWarps - 1) / kWarps;
+  int chunk = min(min(kRowsChunk, s), (kSmemFloats - fixed) / per_row);
+  if (hd > kRowsMaxHeadDim || chunk < 1 || row_blocks * b * n_heads >= (1LL << 31))
+    return {0, 0, 0};
+  return {chunk, (int)row_blocks, sizeof(float) * ((size_t)fixed + (size_t)chunk * per_row)};
+}
+
+bool rows_vec(int hd, const void* a, const void* b, const void* c) {
+  return hd % 8 == 0 && of::aligned16(a, b, c);
+}
+
+cudaError_t launch_rows_fwd(const bf16* qkv, bf16* out, int b, int s, int n_heads, int hd,
+                            cudaStream_t st) {
+  // fixed: q rows and sums; a staged key: k, v and a p of each warp
+  const RowsShape shape = rows_shape(b, s, n_heads, hd, 2 * kWarps * hd, 2 * (hd + 1) + kWarps);
+  if (shape.chunk == 0) return cudaErrorInvalidValue;
+  const cudaError_t err = of::set_attribute_once(
+      reinterpret_cast<const void*>(attention_rows_kernel),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, of::kMaxSmemBytes);
+  if (err != cudaSuccess) return err;
+  attention_rows_kernel<<<shape.row_blocks * b * n_heads, kThreads, shape.smem, st>>>(
+      qkv, out, s, n_heads, hd, shape.chunk, shape.row_blocks, rows_vec(hd, qkv, out, qkv));
+  return cudaGetLastError();
+}
+
+cudaError_t launch_rows_bwd(const bf16* qkv, const bf16* dout, bf16* dqkv, float* stats, int b,
+                            int s, int n_heads, int hd, cudaStream_t st) {
+  const RowsShape dq = rows_shape(b, s, n_heads, hd, 3 * kWarps * hd, 2 * (hd + 1) + kWarps);
+  const RowsShape dkv =
+      rows_shape(b, s, n_heads, hd, 4 * kWarps * hd, 2 * (hd + 1) + 2 * kWarps + 3);
+  if (dq.chunk == 0 || dkv.chunk == 0) return cudaErrorInvalidValue;
+  cudaError_t err = of::set_attribute_once(reinterpret_cast<const void*>(attention_rows_dq_kernel),
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           of::kMaxSmemBytes);
+  if (err == cudaSuccess)
+    err = of::set_attribute_once(reinterpret_cast<const void*>(attention_rows_dkv_kernel),
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, of::kMaxSmemBytes);
+  if (err != cudaSuccess) return err;
+  const bool vec = rows_vec(hd, qkv, dout, dqkv);
+  attention_rows_dq_kernel<<<dq.row_blocks * b * n_heads, kThreads, dq.smem, st>>>(
+      qkv, dout, dqkv, stats, b, s, n_heads, hd, dq.chunk, dq.row_blocks, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_rows_dkv_kernel<<<dkv.row_blocks * b * n_heads, kThreads, dkv.smem, st>>>(
+      qkv, dout, stats, dqkv, b, s, n_heads, hd, dkv.chunk, dkv.row_blocks, vec);
+  return cudaGetLastError();
 }
 
 // Let a kernel take as much dynamic shared memory as a block may have.
@@ -929,6 +1262,30 @@ struct Backward {
   }
 };
 
+// Whether the tiles path takes a shape: heads of up to kMaxHeadDim, batch
+// and heads within the grid's y and z, and every kernel's shared memory
+// (the spilled scores grow with the row) within a block's.
+struct SmemNeed {
+  int s;
+  size_t* bytes;
+  template <int kHdp, bool kOne>
+  cudaError_t run() const {
+    *bytes = std::max({fwd_smem<kHdp, kOne>(s), bwd_dq_smem<kHdp, kOne>(s), bwd_dkv_smem<kHdp>()});
+    return cudaSuccess;
+  }
+};
+
+bool tiles_take(int b, int s, int n_heads, int head_dim) {
+  if (head_dim > kMaxHeadDim || b > 65535 || n_heads > 65535) return false;
+  size_t bytes = 0;
+  dispatch(s, head_dim, SmemNeed{s, &bytes});
+  return bytes <= (size_t)of::kMaxSmemBytes;
+}
+
+bool valid(int b, int s, int n_heads, int head_dim) {
+  return b >= 1 && s >= 1 && n_heads >= 1 && head_dim >= 1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -937,13 +1294,22 @@ const char* of_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
+// 1 where the tiles path takes the shape, 0 where the rows path does.
+int causal_attention_tiles(int b, int s, int n_heads, int head_dim) {
+  return valid(b, s, n_heads, head_dim) && tiles_take(b, s, n_heads, head_dim);
+}
+
 // qkv: bf16 [b, s, 3 * n_heads * head_dim], contiguous; out: bf16
 // [b, s, n_heads * head_dim], contiguous.  Returns cudaGetLastError().
 int causal_attention_bf16(const void* qkv, void* out, int b, int s, int n_heads, int head_dim,
                           void* stream) {
   if (!valid(b, s, n_heads, head_dim)) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!tiles_take(b, s, n_heads, head_dim))
+    return launch_rows_fwd(static_cast<const bf16*>(qkv), static_cast<bf16*>(out), b, s, n_heads,
+                           head_dim, st);
   const Forward f{static_cast<const bf16*>(qkv), static_cast<bf16*>(out), b, s, n_heads,
-                  head_dim, static_cast<cudaStream_t>(stream)};
+                  head_dim, st};
   return dispatch(s, head_dim, f);
 }
 
@@ -955,9 +1321,14 @@ int causal_attention_bf16(const void* qkv, void* out, int b, int s, int n_heads,
 int causal_attention_bwd_bf16(const void* qkv, const void* dout, void* dqkv, void* stats, int b,
                               int s, int n_heads, int head_dim, void* stream) {
   if (!valid(b, s, n_heads, head_dim)) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!tiles_take(b, s, n_heads, head_dim))
+    return launch_rows_bwd(static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
+                           static_cast<bf16*>(dqkv), static_cast<float*>(stats), b, s, n_heads,
+                           head_dim, st);
   const Backward f{static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
                    static_cast<bf16*>(dqkv), static_cast<float*>(stats), b, s, n_heads,
-                   head_dim, static_cast<cudaStream_t>(stream)};
+                   head_dim, st};
   return dispatch(s, head_dim, f);
 }
 

@@ -1,14 +1,16 @@
-// One block step of causal ring attention: f32 scores of a rank's query
-// block against the K/V block visiting it, the causal mask from the two
-// blocks' ring positions, and the online-softmax update of the carry
-// (m, num, den), in place.
+// One block step of causal ring attention, forward and backward.
+//
+// Forward: f32 scores of a rank's query block against the K/V block
+// visiting it, the causal mask from the two blocks' ring positions, and the
+// online-softmax update of the carry (m, num, den), in place.
 //
 // Replaces: operator_forge/tpu/demo.py::_ring_attention_body.step, lines
 // 276-298 (einsum, scale, mask, block max, shift guard, correction, exp,
-// the two sums), which XLA fuses on the TPU.  The ppermute of the K/V
-// block (lines 296-297) stays outside: torch.distributed moves the blocks.
+// the two sums), which XLA fuses on the TPU, and its transpose, which
+// jax.grad derives through the ring's scan.  The ppermute of the K/V block
+// (lines 296-297) stays outside: torch.distributed moves the blocks.
 //
-// Numerics follow the reference line for line, in f32:
+// Forward numerics follow the reference line for line, in f32:
 //   score = (q . k) * scale, scale = 1 / sqrt(f32(d))   a product, as :281
 //   masked where origin*s + j > my*s + i, with -inf      :282-284
 //   new_m = max(m, block max)                             :285-286
@@ -27,17 +29,29 @@
 // block returns at once and the carry keeps its bits.  It is still one
 // launch.
 //
-// Bound on an H100 SXM at the ring of DemoConfig()'s heads, seq 64 over 4
-// ranks ([8, 4, 16, 32] f32 per rank, an earlier block): the step reads q,
-// k, v (196,608 B) and the carry (69,632 B) once and writes the carry once
-// (69,632 B), 0.34 MB: 0.10 us at 3.35 TB/s, against 1.0 MFLOP of the two
-// products at the f32 rate outside the tensor cores, 0.016 us.  So it is
-// bound by bytes, and in practice by one launch and the chain of dependent
-// steps inside it.
+// Backward, from the forward's final m and den and each row's
+// D = sum(dout * out) (out = num / den in f32), for the keys a query sees:
+//   p  = exp(score - m) / den                 the block's probabilities
+//   dS = p * (dout . v - D) * scale           the transpose of "* scale"
+//   dq += sum_j dS_ij k_j,  dk_j += sum_i dS_ij q_i,  dv_j += sum_i p_ij dout_i
+// into f32 accumulators, in place.  The score is the forward's, with the
+// same FMA order.  A later block adds nothing: its blocks return at once
+// and the accumulators keep their bits.
 //
-// Design: one warp per query row, so the chain of dependent work a row
-// needs runs in parallel over every row of the step: at the shape above
-// 512 warps in 128 blocks of 4, over (group of rows, head, batch).  A
+// Bound on an H100 SXM at the ring of DemoConfig()'s heads, seq 64 over 4
+// ranks ([8, 4, 16, 32] f32 per rank, an earlier block): the forward reads
+// q, k, v (196,608 B) and the carry (69,632 B) once and writes the carry
+// once (69,632 B), 0.34 MB: 0.10 us at 3.35 TB/s, against 1.0 MFLOP of the
+// two products at the f32 rate outside the tensor cores, 0.016 us.  The
+// backward reads q, k, v and dout (262,144 B) and m, den and D (6,144 B),
+// and reads and writes dq, dk and dv (393,216 B): 661,504 B, 0.197 us,
+// against some 2.5 MFLOP of five products, 0.04 us.  Both are bound by
+// bytes, and in practice by one launch and the chain of dependent steps
+// inside it.
+//
+// Forward design: one warp per query row, so the chain of dependent work a
+// row needs runs in parallel over every row of the step: at the shape
+// above 512 warps in 128 blocks of 4, over (group of rows, head, batch).  A
 // block stages the keys and values its rows see into shared memory as f32
 // rows padded to d + 1, with 16-byte loads where d allows (bf16 is widened
 // there): both at once when they fit in one chunk of 128 keys, else the
@@ -48,8 +62,29 @@
 // before any exp, as the reference takes it.  p replaces the score in
 // place; lane c then owns output columns c, c + 32, ... and sums p_j v_j
 // over the row's keys in two chains (even and odd keys), p read by every
-// lane from the warp's row.  Every sum runs in a fixed order with no
-// atomics, so a launch repeats bit for bit.
+// lane from the warp's row.  That kernel takes blocks of up to kMaxSeq
+// keys and heads of up to kShortHeadDim.  A longer block, a wider head or
+// more than 65535 batches or heads go to a second kernel on a flat grid,
+// which keeps no score row: it scores the keys twice, chunk by chunk (the
+// chunk shrinks for a wide head), once for the block max and once for exp,
+// the sums and p v, with the same FMA order and so the same bits, and
+// takes a wide head's output columns 128 at a time.
+//
+// Backward design: two roles in one launch.  The first half of the grid
+// gives each query row a warp, which sums dq over the keys it sees; the
+// second half gives each key row a warp, which sums dk and dv over the
+// queries that see it.  A block of kWarps rows stages the other side's
+// rows chunk by chunk (keys and values for queries; queries, dout and the
+// queries' m, den and D for keys); lane j computes the score, p, dout . v
+// and dS of the pairs j, j + 32, ... of the chunk into the warp's buffers,
+// and then lane c adds p and dS times the staged rows into the row's f32
+// sums of columns c, c + 32, ..., which sit in shared memory, so a head of
+// any width up to kMaxHeadDim takes one pass.  Each sum runs over the
+// other side in ascending order from 0 and is added to its accumulator
+// once at the end.
+//
+// Every sum of both kernels runs in a fixed order with no atomics, so a
+// launch repeats bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,38 +95,40 @@
 
 namespace {
 
-constexpr int kChunk = 128;       // keys or values staged at a time
-constexpr int kWarps = 4;         // query rows per block
-constexpr int kMaxHeadDim = 128;
-constexpr int kMaxSeq = 1024;
-constexpr int kCols = kMaxHeadDim / 32;  // output columns a lane owns
+constexpr int kChunk = 128;         // most keys or values staged at a time
+constexpr int kWarps = 4;           // rows per block
+constexpr int kMaxSeq = 1024;       // the longest block whose score rows stay in shared memory
+constexpr int kShortHeadDim = 128;  // the widest head of the forward's first kernel
+constexpr int kMaxHeadDim = 3072;   // the widest head whose rows fit in shared memory
+constexpr int kCols = kShortHeadDim / 32;  // output columns a lane owns at a time
+constexpr int kSmemFloats = of::kMaxSmemBytes / sizeof(float);
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// Stage rows [r0, r0 + n) of one head's [s, hd] plane into dst [n][ld] as
-// f32, 16 bytes a load where `vec` (hd a multiple of 16 bytes' worth of T).
+// Stage rows [r0, r0 + n) of one head's [s, hd] plane into dst [n][ld].
 template <typename T>
 __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src, int r0, int n,
                                       int hd, int ld, bool vec) {
-  constexpr int kPer = 16 / sizeof(T);
-  if (vec) {
-    const int per_row = hd / kPer;
-    for (int i = threadIdx.x; i < n * per_row; i += blockDim.x) {
-      const int j = i / per_row, c = (i - j * per_row) * kPer;
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + j) * hd + c);
-      const T* vals = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) dst[j * ld + c + e] = widen(vals[e]);
-    }
-  } else {
-    for (int i = threadIdx.x; i < n * hd; i += blockDim.x) {
-      const int j = i / hd, c = i - j * hd;
-      dst[j * ld + c] = widen(src[(size_t)(r0 + j) * hd + c]);
-    }
-  }
+  of::stage_rows(dst, src, hd, r0, n, hd, ld, vec);
 }
 
+using of::dot;
+using of::widen;
+
+// the keys staged at a time, for a block whose fixed shared memory takes
+// `fixed` floats and each staged key `per_key` floats: at most kChunk and
+// at most s, and a multiple of 32 where fewer than both fit but at least
+// 32 do; 0 where none fits
+int chunk_for(int s, int fixed, int per_key) {
+  const int most = min(kChunk, s);
+  int chunk = min(most, (kSmemFloats - fixed) / per_key);
+  if (chunk < most && chunk >= 32) chunk -= chunk % 32;
+  return max(chunk, 0);
+}
+
+// ---- forward ------------------------------------------------------------
+
+// Blocks of up to kMaxSeq keys, heads of up to kShortHeadDim and up to
+// 65535 batches and heads, on a (row group, head, batch) grid: the warp's
+// scores stay in its row of shared memory.
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 ring_step_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -224,28 +261,310 @@ ring_step_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Any block, head up to kMaxHeadDim and batch on one flat grid: the keys
+// are scored twice, chunk by chunk, once for the block max and once for
+// exp, the sums and p v, with the same FMA order and so the same bits as
+// the kernel above; p is kept for one chunk at a time, and a head wider
+// than 32 * kCols takes its output columns that many at a time.
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+ring_step_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, float* __restrict__ m,
+                      float* __restrict__ num, float* __restrict__ den, int s, int hd,
+                      int q_block, int k_block, bool vec, int chunk, int row_blocks) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ld = hd + 1;
+  const size_t plane = blockIdx.x / row_blocks;
+  const int q0 = (blockIdx.x % row_blocks) * kWarps;
+  const int rows = min(kWarps, s - q0);
+  const long long lag = ((long long)q_block - k_block) * s;
+  const int n_keys = (int)max(0LL, min((long long)s, lag + q0 + rows));
+  if (n_keys == 0) return;  // a later block: the carry stays as it is
+
+  float* ks = smem;                // [chunk][ld]  staged keys
+  float* vs = ks + chunk * ld;     // [chunk][ld]  staged values
+  float* qs = vs + chunk * ld;     // [kWarps][hd] the rows' q
+  float* ps = qs + kWarps * hd;    // [kWarps][chunk] p of the chunk's keys
+  const size_t base = plane * s * hd;
+  const int row = q0 + warp;
+  const bool live = warp < rows;
+  const int seen = live ? (int)max(0LL, min((long long)s, lag + row + 1)) : 0;
+  float* qr = qs + warp * hd;
+  float* pr = ps + warp * chunk;
+  if (live)
+    for (int c = lane; c < hd; c += 32) qr[c] = widen(q[base + (size_t)row * hd + c]);
+  const float scale = 1.0f / sqrtf((float)hd);
+
+  float block_max = -INFINITY;
+  for (int k0 = 0; k0 < n_keys; k0 += chunk) {
+    const int kn = min(chunk, n_keys - k0);
+    if (k0 > 0) __syncthreads();
+    stage(ks, k + base, k0, kn, hd, ld, vec);
+    __syncthreads();
+    for (int j = k0 + lane; j < min(k0 + kn, seen); j += 32)
+      block_max = fmaxf(block_max, __fmul_rn(dot(qr, ks + (j - k0) * ld, hd), scale));
+  }
+  block_max = of::warp_max(block_max);
+
+  const size_t at = plane * s + row;
+  const float m_old = live ? m[at] : 0.0f;
+  const float new_m = fmaxf(m_old, block_max);
+  const float shift = isinf(new_m) ? 0.0f : new_m;
+  const float correction = expf(m_old - shift);
+  float total = 0.0f;
+  for (int g0 = 0; g0 < hd; g0 += 32 * kCols) {
+    float even[kCols], odd[kCols];
+#pragma unroll
+    for (int e = 0; e < kCols; ++e) even[e] = odd[e] = 0.0f;
+    for (int k0 = 0; k0 < n_keys; k0 += chunk) {
+      const int kn = min(chunk, n_keys - k0);
+      const int end = min(k0 + kn, seen);
+      __syncthreads();
+      stage(ks, k + base, k0, kn, hd, ld, vec);
+      stage(vs, v + base, k0, kn, hd, ld, vec);
+      __syncthreads();
+      for (int j = k0 + lane; j < end; j += 32) {
+        const float p = expf(__fmul_rn(dot(qr, ks + (j - k0) * ld, hd), scale) - shift);
+        pr[j - k0] = p;
+        if (g0 == 0) total += p;
+      }
+      __syncwarp();
+      int j = k0;
+      for (; j + 2 <= end; j += 2) {
+        const float p0 = pr[j - k0], p1 = pr[j - k0 + 1];
+        const float* v0 = vs + (j - k0) * ld;
+        const float* v1 = v0 + ld;
+#pragma unroll
+        for (int e = 0; e < kCols; ++e) {
+          const int c = g0 + lane + 32 * e;
+          if (c < hd) {
+            even[e] = fmaf(p0, v0[c], even[e]);
+            odd[e] = fmaf(p1, v1[c], odd[e]);
+          }
+        }
+      }
+      if (j < end) {
+        const float p0 = pr[j - k0];
+        const float* v0 = vs + (j - k0) * ld;
+#pragma unroll
+        for (int e = 0; e < kCols; ++e) {
+          const int c = g0 + lane + 32 * e;
+          if (c < hd) even[e] = fmaf(p0, v0[c], even[e]);
+        }
+      }
+    }
+    if (live) {
+#pragma unroll
+      for (int e = 0; e < kCols; ++e) {
+        const int c = g0 + lane + 32 * e;
+        if (c < hd) {
+          float* out = num + at * hd + c;
+          *out = __fadd_rn(__fmul_rn(*out, correction), even[e] + odd[e]);
+        }
+      }
+    }
+  }
+  total = of::warp_sum(total);
+  if (live && lane == 0) {
+    m[at] = new_m;
+    den[at] = __fadd_rn(__fmul_rn(den[at], correction), total);
+  }
+}
+
+// ---- backward -----------------------------------------------------------
+
+// The first row_blocks * planes blocks take query rows (dq), the rest key
+// rows (dk, dv); "other" is the side a row sums over.
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+ring_step_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ m, const float* __restrict__ den,
+                     const float* __restrict__ big_d, float* __restrict__ dq,
+                     float* __restrict__ dk, float* __restrict__ dv, int s, int hd,
+                     int q_block, int k_block, bool vec, int chunk, int row_blocks,
+                     unsigned int planes) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ld = hd + 1;
+  const size_t half = (size_t)row_blocks * planes;
+  const bool keys = blockIdx.x >= half;  // this block's rows are keys
+  const size_t id = keys ? blockIdx.x - half : blockIdx.x;
+  const size_t plane = id / row_blocks;
+  const int r0 = (int)(id % row_blocks) * kWarps;
+  const int rows = min(kWarps, s - r0);
+  // query i sees key j when j <= lag + i
+  const long long lag = ((long long)q_block - k_block) * s;
+  // the others the block's rows pair with: [o_begin, o_end)
+  const int o_begin = keys ? (int)min((long long)s, max(0LL, r0 - lag)) : 0;
+  const int o_end = keys ? s : (int)max(0LL, min((long long)s, lag + r0 + rows));
+  if (o_begin >= o_end) return;  // a later block: the accumulators stay as they are
+
+  float* as = smem;                // [chunk][ld] keys (query rows) or queries (key rows)
+  float* bs = as + chunk * ld;     // [chunk][ld] values, or dout
+  float* own = bs + chunk * ld;    // [kWarps][2][hd] the rows' q and dout, or k and v
+  float* acc = own + 2 * kWarps * hd;    // [kWarps][2][hd] dq, or dk and dv
+  float* buf = acc + 2 * kWarps * hd;    // [kWarps][2][chunk] p and dS
+  float* st = buf + 2 * kWarps * chunk;  // [3][chunk] the staged queries' m, den, D
+
+  const size_t base = plane * s * hd;
+  const int row = r0 + warp;
+  const bool live = warp < rows;
+  float* x = own + 2 * warp * hd;  // q, or k
+  float* y = x + hd;               // dout, or v
+  float* sum0 = acc + 2 * warp * hd;
+  float* sum1 = sum0 + hd;
+  float* pb = buf + 2 * warp * chunk;
+  float* db = pb + chunk;
+  if (live) {
+    const T* xs = keys ? k : q;
+    const T* ys = keys ? v : dout;
+    for (int c = lane; c < hd; c += 32) {
+      x[c] = widen(xs[base + (size_t)row * hd + c]);
+      y[c] = widen(ys[base + (size_t)row * hd + c]);
+      sum0[c] = sum1[c] = 0.0f;
+    }
+  }
+  // the row's own range of others
+  int lo = 0, hi = 0;
+  if (live) {
+    lo = keys ? (int)min((long long)s, max(0LL, row - lag)) : 0;
+    hi = keys ? s : (int)max(0LL, min((long long)s, lag + row + 1));
+  }
+  const size_t at = plane * s + row;
+  const float m_row = live && !keys ? m[at] : 0.0f;
+  const float den_row = live && !keys ? den[at] : 1.0f;
+  const float d_row = live && !keys ? big_d[at] : 0.0f;
+  const float scale = 1.0f / sqrtf((float)hd);
+  const T* a_src = keys ? q : k;
+  const T* b_src = keys ? dout : v;
+
+  for (int c0 = o_begin; c0 < o_end; c0 += chunk) {
+    const int n = min(chunk, o_end - c0);
+    __syncthreads();  // the rows are loaded; every warp is done with the last chunk
+    stage(as, a_src + base, c0, n, hd, ld, vec);
+    stage(bs, b_src + base, c0, n, hd, ld, vec);
+    if (keys)
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        st[i] = m[plane * s + c0 + i];
+        st[chunk + i] = den[plane * s + c0 + i];
+        st[2 * chunk + i] = big_d[plane * s + c0 + i];
+      }
+    __syncthreads();
+    const int from = max(c0, lo), to = min(c0 + n, hi);
+    if (from >= to) continue;
+    // p and dS of the row's pairs in this chunk
+    for (int o = from + lane; o < to; o += 32) {
+      const float* ar = as + (o - c0) * ld;
+      const float* br = bs + (o - c0) * ld;
+      const float raw = keys ? dot(ar, x, hd) : dot(x, ar, hd);
+      const float dp = keys ? dot(br, y, hd) : dot(y, br, hd);
+      const float mi = keys ? st[o - c0] : m_row;
+      const float deni = keys ? st[chunk + o - c0] : den_row;
+      const float di = keys ? st[2 * chunk + o - c0] : d_row;
+      const float p = __fdiv_rn(expf(__fmul_rn(raw, scale) - mi), deni);
+      pb[o - c0] = p;
+      db[o - c0] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp, di)), scale);
+    }
+    __syncwarp();
+    // dq += dS k, or dk += dS^T q and dv += p^T dout, in ascending order
+    for (int c = lane; c < hd; c += 32) {
+      float a0 = sum0[c], a1 = sum1[c];
+      for (int o = from; o < to; ++o) {
+        a0 = fmaf(db[o - c0], as[(o - c0) * ld + c], a0);
+        if (keys) a1 = fmaf(pb[o - c0], bs[(o - c0) * ld + c], a1);
+      }
+      sum0[c] = a0;
+      sum1[c] = a1;
+    }
+    __syncwarp();
+  }
+  if (!live) return;
+  for (int c = lane; c < hd; c += 32) {
+    const size_t e = at * hd + c;
+    if (keys) {
+      dk[e] = __fadd_rn(dk[e], sum0[c]);
+      dv[e] = __fadd_rn(dv[e], sum1[c]);
+    } else {
+      dq[e] = __fadd_rn(dq[e], sum0[c]);
+    }
+  }
+}
+
+// ---- launches -----------------------------------------------------------
+
+// the grid's row blocks a plane, or 0 where the grid would be too large
+int row_blocks_of(int b, int h, int s, int blocks_per_row_block) {
+  const long long row_blocks = (s + kWarps - 1) / kWarps;
+  const long long total = row_blocks * b * h * blocks_per_row_block;
+  return total < (1LL << 31) ? (int)row_blocks : 0;
+}
+
+bool valid(int b, int h, int s, int hd, int q_block, int k_block) {
+  return b >= 1 && h >= 1 && s >= 1 && hd >= 1 && hd <= kMaxHeadDim && q_block >= 0 &&
+         k_block >= 0;
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* m, void* num,
            void* den, int b, int h, int s, int hd, int q_block, int k_block,
            void* stream) {
-  if (b < 1 || b > 65535 || h < 1 || h > 65535 || s < 1 || s > kMaxSeq ||
-      hd < 1 || hd > kMaxHeadDim || q_block < 0 || k_block < 0)
-    return cudaErrorInvalidValue;
-  const cudaError_t err = of::set_attribute_once(
-      reinterpret_cast<const void*>(ring_step_kernel<T>),
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      of::kMaxSmemBytes);
-  if (err != cudaSuccess) return err;
+  const int row_blocks = row_blocks_of(b, h, s, 1);
+  if (!valid(b, h, s, hd, q_block, k_block) || row_blocks == 0) return cudaErrorInvalidValue;
   // 16-byte loads need whole 16-byte pieces of a row and aligned planes
   const bool vec = (hd * (int)sizeof(T)) % 16 == 0 && of::aligned16(q, k, v);
-  const int chunk = min(kChunk, s);
-  const size_t smem = sizeof(float) * ((size_t)2 * chunk * (hd + 1) +
-                                       (size_t)kWarps * hd + (size_t)kWarps * s);
-  const dim3 grid((s + kWarps - 1) / kWarps, h, b);
-  ring_step_kernel<T><<<grid, 32 * kWarps, smem, static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool short_block = s <= kMaxSeq && hd <= kShortHeadDim && b <= 65535 && h <= 65535;
+  const void* kernel = short_block ? reinterpret_cast<const void*>(ring_step_kernel<T>)
+                                   : reinterpret_cast<const void*>(ring_step_long_kernel<T>);
+  const cudaError_t err = of::set_attribute_once(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, of::kMaxSmemBytes);
+  if (err != cudaSuccess) return err;
+  if (short_block) {
+    const int chunk = min(kChunk, s);
+    const size_t smem = sizeof(float) * ((size_t)2 * chunk * (hd + 1) +
+                                         (size_t)kWarps * hd + (size_t)kWarps * s);
+    const dim3 grid((s + kWarps - 1) / kWarps, h, b);
+    ring_step_kernel<T><<<grid, 32 * kWarps, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<float*>(m), static_cast<float*>(num), static_cast<float*>(den),
+        s, hd, q_block, k_block, vec);
+    return cudaGetLastError();
+  }
+  const int chunk = chunk_for(s, kWarps * hd, 2 * (hd + 1) + kWarps);
+  if (chunk < 1) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)2 * chunk * (hd + 1) + (size_t)kWarps * hd +
+                                       (size_t)kWarps * chunk);
+  ring_step_long_kernel<T><<<row_blocks * b * h, 32 * kWarps, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<float*>(m), static_cast<float*>(num), static_cast<float*>(den),
-      s, hd, q_block, k_block, vec);
+      s, hd, q_block, k_block, vec, chunk, row_blocks);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* m,
+               const void* den, const void* big_d, void* dq, void* dk, void* dv, int b, int h,
+               int s, int hd, int q_block, int k_block, void* stream) {
+  const int row_blocks = row_blocks_of(b, h, s, 2);
+  if (!valid(b, h, s, hd, q_block, k_block) || row_blocks == 0) return cudaErrorInvalidValue;
+  const cudaError_t err = of::set_attribute_once(
+      reinterpret_cast<const void*>(ring_step_bwd_kernel<T>),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, of::kMaxSmemBytes);
+  if (err != cudaSuccess) return err;
+  const bool vec = (hd * (int)sizeof(T)) % 16 == 0 && of::aligned16(q, k, v, dout);
+  const int chunk = chunk_for(s, 4 * kWarps * hd, 2 * (hd + 1) + 2 * kWarps + 3);
+  if (chunk < 1) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)2 * chunk * (hd + 1) + (size_t)4 * kWarps * hd +
+                                       (size_t)(2 * kWarps + 3) * chunk);
+  const unsigned int planes = (unsigned int)b * h;
+  ring_step_bwd_kernel<T><<<2 * row_blocks * planes, 32 * kWarps, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(m), static_cast<const float*>(den),
+      static_cast<const float*>(big_d), static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), s, hd, q_block, k_block, vec, chunk, row_blocks, planes);
   return cudaGetLastError();
 }
 
@@ -273,6 +592,27 @@ int ring_step_bf16(const void* q, const void* k, const void* v, void* m, void* n
                    void* stream) {
   return launch<__nv_bfloat16>(q, k, v, m, num, den, b, h, s, hd, q_block, k_block,
                                stream);
+}
+
+// q, k, v, dout: [b, h, s, hd] contiguous, f32 (ring_step_bwd_f32) or
+// bf16 (ring_step_bwd_bf16); m, den, big_d: f32 [b, h, s, 1], the forward's
+// final carry and each row's sum(dout * out); dq, dk, dv: f32 [b, h, s,
+// hd], the accumulators, updated in place.  One launch; returns
+// cudaGetLastError().
+int ring_step_bwd_f32(const void* q, const void* k, const void* v, const void* dout,
+                      const void* m, const void* den, const void* big_d, void* dq, void* dk,
+                      void* dv, int b, int h, int s, int hd, int q_block, int k_block,
+                      void* stream) {
+  return launch_bwd<float>(q, k, v, dout, m, den, big_d, dq, dk, dv, b, h, s, hd, q_block,
+                           k_block, stream);
+}
+
+int ring_step_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
+                       const void* m, const void* den, const void* big_d, void* dq, void* dk,
+                       void* dv, int b, int h, int s, int hd, int q_block, int k_block,
+                       void* stream) {
+  return launch_bwd<__nv_bfloat16>(q, k, v, dout, m, den, big_d, dq, dk, dv, b, h, s, hd,
+                                   q_block, k_block, stream);
 }
 
 }  // extern "C"

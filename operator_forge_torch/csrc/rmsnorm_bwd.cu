@@ -26,7 +26,13 @@
 // columns (a multiple of 4: the model's widths) sits in registers, read
 // and written 16 bytes a lane at a time, so its loads go out together;
 // a wider or odd row is strided by the lanes in three passes, the later
-// two finding it in L1.
+// two finding it in L1.  A row of more than kMaxCols columns takes one
+// launch a window of columns: each launch reduces every row whole (the
+// norm and mean(u * xhat) need it) and writes dx and dgain of its window,
+// so the column sums stay within shared memory at any width.  Windows also
+// narrow until enough warps fit that none chains more than kMaxChain rows
+// into its f32 column sums, whose rounding grows with the chain (as long
+// as 32 warps a block suffice).  Offsets are 64-bit.
 // The warp writes dx and adds dy * xhat into its own f32 column sums in
 // shared memory, in row order.  Then the block adds its warps' sums in
 // warp order and stores each column's total into the shared memory of the
@@ -50,7 +56,8 @@ namespace {
 
 constexpr int kCluster = 16;
 constexpr int kMaxWarps = 32;
-constexpr int kMaxCols = 16384;
+constexpr int kMaxCols = 16384;  // the widest window of columns a launch takes
+constexpr int kMaxChain = 1024;  // the most rows a warp's column sums should chain
 constexpr float kEps = 1e-6f;
 
 __device__ __forceinline__ void prefetch_l1(const float* p) {
@@ -71,12 +78,13 @@ __device__ __forceinline__ float norm_of(float sq, float fd) {
 }
 
 // One row, its lanes striding any number of columns: a pass for the norm
-// (prefetching dy and the gain into L1), one for mean(u * xhat), one that
-// writes dx and adds dy * xhat into the warp's column sums `mine`.
+// (prefetching dy and the gain into L1), one for mean(u * xhat), both over
+// the whole row, and one that writes dx of the window [c0, c0 + dc) and
+// adds dy * xhat into the warp's column sums `mine` of the window.
 __device__ __forceinline__ void row_any(const float* __restrict__ xr,
                                         const float* __restrict__ dyr,
                                         const float* __restrict__ gain, float* __restrict__ dxr,
-                                        float* mine, int d, int lane) {
+                                        float* mine, int d, int c0, int dc, int lane) {
   const float fd = static_cast<float>(d);
   float sq = 0.0f;
 #pragma unroll 4
@@ -95,12 +103,12 @@ __device__ __forceinline__ void row_any(const float* __restrict__ xr,
   }
   const float mean_ux = __fdiv_rn(of::warp_sum(ux), fd);
 #pragma unroll 4
-  for (int c = lane; c < d; c += 32) {
+  for (int c = c0 + lane; c < c0 + dc; c += 32) {
     const float dyc = dyr[c];
     const float xhat = __fdiv_rn(xr[c], norm);
     const float u = __fmul_rn(dyc, gain[c]);
     dxr[c] = __fdiv_rn(__fsub_rn(u, __fmul_rn(xhat, mean_ux)), norm);
-    mine[c] = __fadd_rn(mine[c], __fmul_rn(dyc, xhat));
+    mine[c - c0] = __fadd_rn(mine[c - c0], __fmul_rn(dyc, xhat));
   }
 }
 
@@ -145,14 +153,16 @@ __device__ __forceinline__ void row_in_registers(const float* __restrict__ xr,
 }
 
 // kInRegisters: rows in registers (d % 4 == 0, d <= 128, 16-byte aligned
-// tensors); else any d.
+// tensors); else any d.  The launch writes dx and dgain of the columns
+// [c0, c0 + dc), the whole row with kInRegisters.
 template <bool kInRegisters>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1)
 rmsnorm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gain,
                    const float* __restrict__ dy, float* __restrict__ dx,
-                   float* __restrict__ dgain, int n_rows, int d, int rows_per_block) {
+                   float* __restrict__ dgain, int n_rows, int d, int c0, int dc,
+                   int rows_per_block) {
   extern __shared__ float4 smem4[];
-  float* sums = reinterpret_cast<float*>(smem4);  // [warps][d]: each warp's column sums
+  float* sums = reinterpret_cast<float*>(smem4);  // [warps][dc]: each warp's column sums
   cg::cluster_group cluster = cg::this_cluster();
   const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rank = static_cast<int>(cluster.block_rank());
@@ -160,8 +170,8 @@ rmsnorm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gain,
   // arrive now, wait after the rows
   cluster_arrive_relaxed();
 
-  float* mine = sums + (size_t)warp * d;
-  for (int c = lane; c < d; c += 32) mine[c] = 0.0f;
+  float* mine = sums + (size_t)warp * dc;
+  for (int c = lane; c < dc; c += 32) mine[c] = 0.0f;
 
   const int per_warp = (rows_per_block + warps - 1) / warps;
   const int block_end = min(n_rows, (rank + 1) * rows_per_block);
@@ -175,19 +185,20 @@ rmsnorm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gain,
                        lane);
   } else {
     for (int r = r0; r < r1; ++r)
-      row_any(x + (size_t)r * d, dy + (size_t)r * d, gain, dx + (size_t)r * d, mine, d, lane);
+      row_any(x + (size_t)r * d, dy + (size_t)r * d, gain, dx + (size_t)r * d, mine, d, c0, dc,
+              lane);
   }
   __syncthreads();
   cluster_wait();
 
   // the block's column sums, its warps' added in warp order, each stored
   // into the inbox of the block that owns the column, in this block's slot
-  const int share = (d + kCluster - 1) / kCluster;  // columns a block owns
-  float* inbox = sums + (size_t)warps * d;          // [kCluster][share]
-  for (int c = threadIdx.x; c < d; c += blockDim.x) {
+  const int share = (dc + kCluster - 1) / kCluster;  // columns a block owns
+  float* inbox = sums + (size_t)warps * dc;          // [kCluster][share]
+  for (int c = threadIdx.x; c < dc; c += blockDim.x) {
     float s = sums[c];
 #pragma unroll 8
-    for (int w = 1; w < warps; ++w) s = __fadd_rn(s, sums[(size_t)w * d + c]);
+    for (int w = 1; w < warps; ++w) s = __fadd_rn(s, sums[(size_t)w * dc + c]);
     const int owner = c / share;
     cluster.map_shared_rank(inbox, owner)[rank * share + c - owner * share] = s;
   }
@@ -196,21 +207,21 @@ rmsnorm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gain,
   cluster.sync();
 
   // dgain of this block's columns: the cluster's sums in rank order
-  const int c0 = rank * share;
-  for (int c = c0 + threadIdx.x; c < min(d, c0 + share); c += blockDim.x) {
+  const int own = rank * share;
+  for (int c = own + threadIdx.x; c < min(dc, own + share); c += blockDim.x) {
     float part[kCluster];
 #pragma unroll
-    for (int k = 0; k < kCluster; ++k) part[k] = inbox[k * share + c - c0];
+    for (int k = 0; k < kCluster; ++k) part[k] = inbox[k * share + c - own];
     float s = part[0];
 #pragma unroll
     for (int k = 1; k < kCluster; ++k) s = __fadd_rn(s, part[k]);
-    dgain[c] = s;
+    dgain[c0 + c] = s;
   }
 }
 
 template <bool kInRegisters>
 cudaError_t launch(const float* x, const float* gain, const float* dy, float* dx, float* dgain,
-                   int n_rows, int d, cudaStream_t stream) {
+                   int n_rows, int d, int c0, int dc, cudaStream_t stream) {
   const auto entry = rmsnorm_bwd_kernel<kInRegisters>;
   const void* kernel = reinterpret_cast<const void*>(entry);
   cudaError_t err = of::set_attribute_once(
@@ -220,9 +231,9 @@ cudaError_t launch(const float* x, const float* gain, const float* dy, float* dx
   if (err != cudaSuccess) return err;
 
   const int rows_per_block = (n_rows + kCluster - 1) / kCluster;
-  const int inbox = kCluster * ((d + kCluster - 1) / kCluster);
+  const int inbox = kCluster * ((dc + kCluster - 1) / kCluster);
   // the warps whose column sums fit beside the inbox
-  const int fit = (of::kMaxSmemBytes / (int)sizeof(float) - inbox) / d;
+  const int fit = (of::kMaxSmemBytes / (int)sizeof(float) - inbox) / dc;
   const int warps = max(1, min(kMaxWarps, min(rows_per_block, fit)));
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -232,11 +243,12 @@ cudaError_t launch(const float* x, const float* gain, const float* dy, float* dx
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(kCluster);
   config.blockDim = dim3(32 * warps);
-  config.dynamicSmemBytes = sizeof(float) * ((size_t)warps * d + inbox);
+  config.dynamicSmemBytes = sizeof(float) * ((size_t)warps * dc + inbox);
   config.stream = stream;
   config.attrs = attr;
   config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, entry, x, gain, dy, dx, dgain, n_rows, d, rows_per_block);
+  err = cudaLaunchKernelEx(&config, entry, x, gain, dy, dx, dgain, n_rows, d, c0, dc,
+                           rows_per_block);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -253,16 +265,28 @@ const char* of_error_string(int status) {
 int rmsnorm_bwd_cluster(void) { return kCluster; }
 
 // x, dy, dx: f32 [n_rows, d] contiguous; gain, dgain: f32 [d].  Writes dx
-// and dgain.  Returns the launch's status.
+// and dgain: one launch for rows of up to kMaxCols columns, else one launch
+// a window of at most kMaxCols columns.  Returns the launches' status.
 int rmsnorm_bwd_f32(const void* x, const void* gain, const void* dy, void* dx, void* dgain,
                     int n_rows, int d, void* stream) {
-  if (n_rows < 1 || d < 1 || d > kMaxCols || (long long)n_rows * d >= (1LL << 31))
-    return cudaErrorInvalidValue;
+  if (n_rows < 1 || d < 1) return cudaErrorInvalidValue;
   const auto run = d % 4 == 0 && d <= 128 && of::aligned16(x, gain, dy, dx) ? launch<true>
                                                                           : launch<false>;
-  return run(static_cast<const float*>(x), static_cast<const float*>(gain),
-             static_cast<const float*>(dy), static_cast<float*>(dx), static_cast<float*>(dgain),
-             n_rows, d, static_cast<cudaStream_t>(stream));
+  // the widest window beside which the warps that keep every warp's
+  // column sums within kMaxChain rows fit
+  const int rows_per_block = (n_rows + kCluster - 1) / kCluster;
+  const int warps = min(kMaxWarps, (rows_per_block + kMaxChain - 1) / kMaxChain);
+  const int width = min(kMaxCols, (of::kMaxSmemBytes / (int)sizeof(float) - kCluster) / (warps + 1));
+  const int windows = (d + width - 1) / width;
+  const int dc = (d + windows - 1) / windows;
+  for (int c0 = 0; c0 < d; c0 += dc) {
+    const cudaError_t err = run(static_cast<const float*>(x), static_cast<const float*>(gain),
+                                static_cast<const float*>(dy), static_cast<float*>(dx),
+                                static_cast<float*>(dgain), n_rows, d, c0, min(dc, d - c0),
+                                static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // extern "C"

@@ -35,7 +35,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from .kernels.attention import causal_attention
 from .kernels.cross_entropy import cross_entropy
 from .kernels.gelu import gelu_tanh
-from .kernels.ring_attention import ring_step
+from .kernels.ring_attention import ring_step, ring_step_bwd
 from .kernels.rmsnorm import rmsnorm
 
 
@@ -446,42 +446,96 @@ def run_dryrun(n_devices: int, config: DemoConfig | None = None, device: str | t
 # -- ring attention (sequence/context parallelism) -----------------------
 
 
-def _ring_attention_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, group, n: int) -> torch.Tensor:
+def _exchange(sends: list, receives: list, group, after: int, before: int, tag0: int) -> list:
+    """Post the sends of ``sends`` to ``after`` and the receives of
+    ``receives`` from ``before``, one tag a tensor from ``tag0``; return
+    the requests."""
+    return dist.batch_isend_irecv(
+        [dist.P2POp(dist.isend, t, after, group, tag=tag0 + i) for i, t in enumerate(sends)]
+        + [dist.P2POp(dist.irecv, t, before, group, tag=tag0 + i) for i, t in enumerate(receives)]
+    )
+
+
+def _wait(requests: list) -> None:
+    for request in requests:
+        request.wait()
+
+
+class RingAttention(torch.autograd.Function):
     """Causal ring attention over sequence shards, run by each of the ``n``
     ranks of ``group`` on its contiguous shard of q/k/v ``[b, h, s_local,
-    d]``.  K/V blocks travel ``i -> i + 1`` around the ring while the
+    d]``, with the gradient ``jax.grad`` derives through the reference's
+    ring.
+
+    Forward: K/V blocks travel ``i -> i + 1`` around the ring while the
     online softmax accumulates (``kernels/ring_attention.py``, one launch a
     step), so no rank materialises the full ``[s, s]`` scores.  The next
     block's send and receive are posted before the current block's step,
     so communication overlaps compute, and waited on before the next step.
     There are ``n - 1`` rotations: the reference's last ``ppermute``
-    (``demo.py:296-297``) feeds no step."""
-    my = dist.get_rank(group)
-    b, h, s, d = q.shape
-    q, k_blk, v_blk = q.contiguous(), k.contiguous(), v.contiguous()
-    m = torch.full((b, h, s, 1), -math.inf, device=q.device)    # running max
-    num = torch.zeros((b, h, s, d), device=q.device)             # numerator
-    den = torch.zeros((b, h, s, 1), device=q.device)             # denominator
-    after = dist.get_global_rank(group, (my + 1) % n)
-    before = dist.get_global_rank(group, (my - 1) % n)
-    for j in range(n):
-        origin = (my - j) % n  # ring position this kv block came from
-        if j < n - 1:
-            k_next, v_next = torch.empty_like(k_blk), torch.empty_like(v_blk)
-            pending = dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, k_blk, after, group, tag=0),
-                dist.P2POp(dist.isend, v_blk, after, group, tag=1),
-                dist.P2POp(dist.irecv, k_next, before, group, tag=0),
-                dist.P2POp(dist.irecv, v_next, before, group, tag=1),
-            ])
-        ring_step(q, k_blk, v_blk, m, num, den, my, origin)
-        if j < n - 1:
-            for request in pending:
-                request.wait()
-            k_blk, v_blk = k_next, v_next
-    # every query attends at least to itself (the j=0 diagonal block),
-    # so den > 0 everywhere
-    return (num / den).to(q.dtype)
+    (``demo.py:296-297``) feeds no step.  Grad mode is off inside a
+    Function's forward, so the carry is updated in place.  Saves q, k, v,
+    the f32 output before its cast, and the final ``(m, den)``.
+
+    Backward: each row's ``D = sum(dout * out)`` on the f32 output (the
+    cast's derivative is the identity), then ``(k, v, dk, dv)`` go around
+    the ring again, dk and dv accumulating the block's share at every rank
+    it visits (one backward step a rotation).  K and V of the next step are
+    posted before the step, dk and dv after it.  That takes ``n``
+    rotations, one more than the forward: a block's dk and dv reach their
+    owner only after the last step's hop, which carries dk and dv alone.
+    With one rank nothing moves.  The gradients come back in the inputs'
+    type, each rounded once."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, group, n: int) -> torch.Tensor:
+        my = dist.get_rank(group)
+        b, h, s, d = q.shape
+        q, k_blk, v_blk = q.contiguous(), k.contiguous(), v.contiguous()
+        m = torch.full((b, h, s, 1), -math.inf, device=q.device)    # running max
+        num = torch.zeros((b, h, s, d), device=q.device)             # numerator
+        den = torch.zeros((b, h, s, 1), device=q.device)             # denominator
+        after = dist.get_global_rank(group, (my + 1) % n)
+        before = dist.get_global_rank(group, (my - 1) % n)
+        k, v = k_blk, v_blk
+        for j in range(n):
+            origin = (my - j) % n  # ring position this kv block came from
+            if j < n - 1:
+                k_next, v_next = torch.empty_like(k_blk), torch.empty_like(v_blk)
+                pending = _exchange([k_blk, v_blk], [k_next, v_next], group, after, before, 0)
+            ring_step(q, k_blk, v_blk, m, num, den, my, origin)
+            if j < n - 1:
+                _wait(pending)
+                k_blk, v_blk = k_next, v_next
+        # every query attends at least to itself (the j=0 diagonal block),
+        # so den > 0 everywhere
+        out = num / den
+        ctx.save_for_backward(q, k, v, out, m, den)
+        ctx.group, ctx.n, ctx.my, ctx.after, ctx.before = group, n, my, after, before
+        return out.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        q, k_blk, v_blk, out, m, den = ctx.saved_tensors
+        group, n, my, after, before = ctx.group, ctx.n, ctx.my, ctx.after, ctx.before
+        dout = dout.to(q.dtype).contiguous()
+        big_d = (dout.float() * out).sum(dim=-1, keepdim=True)
+        dq = torch.zeros(out.shape, device=q.device)
+        dk, dv = torch.zeros_like(dq), torch.zeros_like(dq)
+        for j in range(n):
+            origin = (my - j) % n  # ring position the kv block (and its dk, dv) came from
+            if j < n - 1:
+                k_next, v_next = torch.empty_like(k_blk), torch.empty_like(v_blk)
+                pending = _exchange([k_blk, v_blk], [k_next, v_next], group, after, before, 0)
+            ring_step_bwd(q, k_blk, v_blk, dout, m, den, big_d, my, origin, dq, dk, dv)
+            if n > 1:
+                dk_next, dv_next = torch.empty_like(dk), torch.empty_like(dv)
+                _wait(_exchange([dk, dv], [dk_next, dv_next], group, after, before, 2))
+                dk, dv = dk_next, dv_next
+            if j < n - 1:
+                _wait(pending)
+                k_blk, v_blk = k_next, v_next
+        return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), None, None
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh: DeviceMesh,
@@ -490,9 +544,10 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh: Devi
     dim ``axis``: every rank of that dim passes its own contiguous shard
     ``[b, h, seq / n, d]`` of q, k and v and gets its shard of the output,
     so its peak memory is O(s_local^2) instead of O(seq^2).  With one rank
-    on ``axis`` no communication takes place."""
+    on ``axis`` no communication takes place.  ``backward()`` through it
+    runs the ring's backward (``RingAttention``)."""
     group = mesh.get_group(axis)
-    return _ring_attention_body(q, k, v, group=group, n=dist.get_world_size(group))
+    return RingAttention.apply(q, k, v, group, dist.get_world_size(group))
 
 
 def dense_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

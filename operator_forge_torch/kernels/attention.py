@@ -4,6 +4,9 @@
 Counterpart of ``operator_forge/tpu/demo.py::_attention`` lines 79-92: it
 takes the bf16 QKV product ``[b, s, 3d]`` and returns the bf16 attention
 output ``[b, s, d]`` with the heads merged, ready for the ``wo`` product.
+The kernels have two paths, chosen by shape in the source: tiles on the
+tensor cores where a head is at most 128 wide and a row's spilled scores
+fit in shared memory, else one warp a row (``tiles`` says which).
 The backward takes that output's gradient and returns the gradient of the
 QKV product, with the cast points of JAX's autodiff of the same lines;
 ``causal_attention`` ties the two together as an autograd ``Function``.
@@ -18,8 +21,9 @@ import torch
 
 from . import build
 
-MAX_SEQ = 1024
-MAX_HEAD_DIM = 128
+# the widest head whose rows a block of the rows path holds in shared
+# memory (``kRowsMaxHeadDim`` in the source); the sequence has no limit
+MAX_HEAD_DIM = 3072
 MASK_FILL = -1e30  # finite, as in the reference: exp(MASK_FILL - max) == 0
 
 launches = 0
@@ -86,12 +90,18 @@ def _check(qkv: torch.Tensor, n_heads: int) -> tuple[int, int, int]:
     if n_heads < 1 or three_d % (3 * n_heads):
         raise ValueError(f"last dim {three_d} is not 3 * n_heads({n_heads}) * head_dim")
     head_dim = three_d // (3 * n_heads)
-    if not 1 <= s <= MAX_SEQ or head_dim > MAX_HEAD_DIM or b > 65535:
-        raise ValueError(
-            f"causal_attention takes seq <= {MAX_SEQ}, head_dim <= "
-            f"{MAX_HEAD_DIM} and batch <= 65535; got b {b}, s {s}, head_dim {head_dim}"
-        )
+    if b < 1 or s < 1 or head_dim < 1:
+        raise ValueError(f"causal_attention takes a non-empty batch, sequence and head, got "
+                         f"b {b}, s {s}, head_dim {head_dim}")
     return b, s, head_dim
+
+
+def _card_check(what: str, head_dim: int) -> None:
+    if head_dim > MAX_HEAD_DIM:
+        raise ValueError(
+            f"{what}'s kernels take head_dim <= {MAX_HEAD_DIM}, the widest whose rows fit "
+            f"in a block's shared memory; got {head_dim}"
+        )
 
 
 @functools.cache
@@ -107,7 +117,15 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.causal_attention_bwd_bf16.restype = ctypes.c_int
+    lib.causal_attention_tiles.argtypes = [ctypes.c_int] * 4
+    lib.causal_attention_tiles.restype = ctypes.c_int
     return lib
+
+
+def tiles(b: int, s: int, n_heads: int, head_dim: int) -> bool:
+    """Whether the kernels take a shape on the tiles path (``mma.sync``),
+    rather than the rows path (builds the kernels)."""
+    return bool(_library().causal_attention_tiles(b, s, n_heads, head_dim))
 
 
 def causal_attention_fwd(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -119,6 +137,7 @@ def causal_attention_fwd(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
         return causal_attention_ref(qkv, n_heads)
     if qkv.device.type != "cuda" or not qkv.is_contiguous():
         raise ValueError("causal_attention's kernel takes a contiguous CUDA tensor")
+    _card_check("causal_attention", head_dim)
     lib = _library()
     out = torch.empty(b, s, n_heads * head_dim, dtype=torch.bfloat16, device=qkv.device)
     with torch.cuda.device(qkv.device):
@@ -151,6 +170,7 @@ def causal_attention_bwd(
         raise ValueError(
             "causal_attention_bwd's kernel takes contiguous tensors on one CUDA device"
         )
+    _card_check("causal_attention_bwd", head_dim)
     lib = _library()
     dqkv = torch.empty_like(qkv)
     # each row's softmax max and sum and its D = sum_k y dP, handed from the

@@ -11,10 +11,14 @@ Bound on an H100 SXM at DemoConfig() (logits f32 [512, 256], int64
 targets): forward and backward together read the logits and the targets
 once and write dlogits and the loss once, 1,052,676 B: 0.31 us at
 3.35 TB/s, far below one launch.  Design: one program per row holds the
-row in registers; the forward writes each row's NLL and its log-sum-exp
-(kept for the backward), and a second launch of one program takes the mean
-over the rows in a fixed order: no float atomics and no ``torch.mean``, so
-the loss repeats bit for bit.  The backward is one program per row again.
+row in registers (up to 16384 logits; a longer row, Llama 2's 32000 say,
+goes in chunks: a pass for the max, then one for the sum of
+``exp(x - max)``, in ``log_softmax``'s order); the forward writes each
+row's NLL and its log-sum-exp (kept for the backward), and a second launch
+of one program takes the mean over the rows in a fixed order: no float
+atomics and no ``torch.mean``, so the loss repeats bit for bit.  The
+backward is one program per row again, chunk by chunk.  Row offsets are
+64-bit, so the logits may hold 2**31 values or more.
 The forward's two launches count as one, the backward as one.  Triton
 serves as well as CUDA here: there is no tensor-core work, only row
 reductions.
@@ -26,7 +30,10 @@ import functools
 
 import torch
 
-MAX_VOCAB = 16384
+# a row of up to ROW_BLOCK logits sits in registers; a longer one goes
+# CHUNK logits at a time
+ROW_BLOCK = 16384
+CHUNK = 8192
 MEAN_BLOCK = 1024
 
 launches = 0
@@ -75,15 +82,31 @@ def _kernel():
     import triton.language as tl
 
     @triton.jit
-    def ce_rows_kernel(x_ptr, t_ptr, nll_ptr, lse_ptr, n_cols, BLOCK: tl.constexpr):
-        row = tl.program_id(0)
+    def ce_rows_kernel(x_ptr, t_ptr, nll_ptr, lse_ptr, n_cols, BLOCK: tl.constexpr,
+                       ONE: tl.constexpr):
+        row = tl.program_id(0).to(tl.int64)
+        x_row = x_ptr + row * n_cols
         cols = tl.arange(0, BLOCK)
-        x = tl.load(x_ptr + row * n_cols + cols, mask=cols < n_cols, other=-float("inf"))
-        top = tl.max(x, axis=0)
-        shifted = x - top
-        log_total = tl.log(tl.sum(tl.exp(shifted), axis=0))
         target = tl.load(t_ptr + row)
-        picked = tl.sum(tl.where(cols == target, shifted, 0.0), axis=0)
+        if ONE:  # the row in registers
+            x = tl.load(x_row + cols, mask=cols < n_cols, other=-float("inf"))
+            top = tl.max(x, axis=0)
+            shifted = x - top
+            log_total = tl.log(tl.sum(tl.exp(shifted), axis=0))
+            picked = tl.sum(tl.where(cols == target, shifted, 0.0), axis=0)
+        else:  # chunk by chunk: the max, then the sum of exp(x - max)
+            top_acc = tl.full([BLOCK], -float("inf"), tl.float32)
+            for c0 in range(0, n_cols, BLOCK):
+                x = tl.load(x_row + c0 + cols, mask=c0 + cols < n_cols, other=-float("inf"))
+                top_acc = tl.maximum(top_acc, x)
+            top = tl.max(top_acc, axis=0)
+            total = tl.zeros([BLOCK], dtype=tl.float32)
+            for c0 in range(0, n_cols, BLOCK):
+                x = tl.load(x_row + c0 + cols, mask=c0 + cols < n_cols, other=-float("inf"))
+                total += tl.exp(x - top)
+            log_total = tl.log(tl.sum(total, axis=0))
+            inside = (target >= 0) & (target < n_cols)
+            picked = tl.load(x_row + target, mask=inside, other=top) - top
         tl.store(nll_ptr + row, -(picked - log_total))
         tl.store(lse_ptr + row, top + log_total)
 
@@ -98,16 +121,25 @@ def _kernel():
     @triton.jit
     def ce_bwd_kernel(x_ptr, t_ptr, lse_ptr, g_ptr, dx_ptr, divisor, n_cols,
                       BLOCK: tl.constexpr):
-        row = tl.program_id(0)
-        cols = tl.arange(0, BLOCK)
-        inside = cols < n_cols
-        x = tl.load(x_ptr + row * n_cols + cols, mask=inside, other=0.0)
-        probs = tl.exp(x - tl.load(lse_ptr + row))
-        onehot = tl.where(cols == tl.load(t_ptr + row), 1.0, 0.0)
+        row = tl.program_id(0).to(tl.int64)
+        lse = tl.load(lse_ptr + row)
+        target = tl.load(t_ptr + row)
         scale = tl.div_rn(tl.load(g_ptr), divisor)
-        tl.store(dx_ptr + row * n_cols + cols, (probs - onehot) * scale, mask=inside)
+        for c0 in range(0, n_cols, BLOCK):
+            cols = c0 + tl.arange(0, BLOCK)
+            inside = cols < n_cols
+            x = tl.load(x_ptr + row * n_cols + cols, mask=inside, other=0.0)
+            probs = tl.exp(x - lse)
+            onehot = tl.where(cols == target, 1.0, 0.0)
+            tl.store(dx_ptr + row * n_cols + cols, (probs - onehot) * scale, mask=inside)
 
     return triton, ce_rows_kernel, mean_kernel, ce_bwd_kernel
+
+
+def _block(triton, n_cols: int) -> int:
+    """The logits a program holds at a time: the whole row up to
+    ``ROW_BLOCK``, else ``CHUNK``."""
+    return triton.next_power_of_2(n_cols) if n_cols <= ROW_BLOCK else CHUNK
 
 
 def _check(logits: torch.Tensor, targets: torch.Tensor, what: str) -> bool:
@@ -116,17 +148,16 @@ def _check(logits: torch.Tensor, targets: torch.Tensor, what: str) -> bool:
     raise otherwise."""
     if (logits.dtype != torch.float32 or targets.dtype not in (torch.int32, torch.int64)
             or logits.dim() < 1 or targets.shape != logits.shape[:-1]
-            or not 1 <= logits.shape[-1] <= MAX_VOCAB or targets.numel() < 1):
+            or logits.shape[-1] < 1 or targets.numel() < 1):
         raise ValueError(
-            f"{what} takes f32 logits [..., V] with V <= {MAX_VOCAB} and integer "
+            f"{what} takes f32 logits [..., V] with V >= 1 and integer "
             f"targets [...], got {logits.dtype} {tuple(logits.shape)} and "
             f"{targets.dtype} {tuple(targets.shape)}"
         )
     if logits.device.type == "cpu" and targets.device.type == "cpu":
         return True
     if (logits.device.type != "cuda" or targets.device != logits.device
-            or not logits.is_contiguous() or not targets.is_contiguous()
-            or logits.numel() >= 2**31):
+            or not logits.is_contiguous() or not targets.is_contiguous()):
         raise ValueError(f"{what}'s kernels take contiguous tensors on one CUDA device")
     return False
 
@@ -147,10 +178,11 @@ def cross_entropy_fwd(
     nll = torch.empty(n_rows, dtype=torch.float32, device=x.device)
     lse = torch.empty_like(nll)
     loss = torch.empty((), dtype=torch.float32, device=x.device)
-    block = triton.next_power_of_2(n_cols)
+    block = _block(triton, n_cols)
     with torch.cuda.device(x.device):
         rows_kernel[(n_rows,)](
-            x, t, nll, lse, n_cols, BLOCK=block, num_warps=min(max(block // 256, 1), 8)
+            x, t, nll, lse, n_cols, BLOCK=block, ONE=n_cols <= block,
+            num_warps=min(max(block // 256, 1), 8),
         )
         # the row count as an f32 argument (exact below 2**24): Triton
         # would make an int argument of 1 a constant
@@ -181,7 +213,7 @@ def cross_entropy_bwd(
     triton, _, _, kernel = _kernel()
     x, t = _rows(logits, targets)
     dx = torch.empty_like(x)
-    block = triton.next_power_of_2(x.shape[1])
+    block = _block(triton, x.shape[1])
     with torch.cuda.device(x.device):
         kernel[(n_rows,)](
             x, t, lse, grad, dx, float(n_rows), x.shape[1], BLOCK=block,

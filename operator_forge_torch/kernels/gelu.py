@@ -7,7 +7,8 @@ Bound on an H100 SXM at DemoConfig() (h bf16 [512, 512]): it reads and
 writes 262,144 bf16 values once, 1,048,576 B: 0.31 us at 3.35 TB/s; its
 some 2.6 MFLOP of f32 arithmetic are nothing beside that.  At this size it
 is bound by launch overhead.  Design: a flat elementwise pass, 1024 values
-a program, bf16 in, the formula in f32, one rounding to bf16 on the store.
+a program at 64-bit offsets (so 2**31 values or more are taken), bf16 in,
+the formula in f32, one rounding to bf16 on the store.
 ``0.5 * (1 + tanh(u))`` is computed as ``1 / (1 + exp(-2u))``, the same
 function with no cancellation near ``u = 0``.  Triton serves as well as
 CUDA for a pure elementwise pass.
@@ -64,7 +65,7 @@ def _kernel():
 
     @triton.jit
     def gelu_kernel(x_ptr, y_ptr, n, BLOCK: tl.constexpr):
-        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
         inside = offs < n
         x = tl.load(x_ptr + offs, mask=inside, other=0.0).to(tl.float32)
         u = 0.7978845608028654 * (x + 0.044715 * (x * x * x))
@@ -73,7 +74,7 @@ def _kernel():
 
     @triton.jit
     def gelu_bwd_kernel(x_ptr, dy_ptr, dx_ptr, n, BLOCK: tl.constexpr):
-        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
         inside = offs < n
         x = tl.load(x_ptr + offs, mask=inside, other=0.0).to(tl.float32)
         dy = tl.load(dy_ptr + offs, mask=inside, other=0.0).to(tl.float32)
@@ -93,7 +94,7 @@ def gelu_tanh_fwd(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gelu_tanh takes bf16, got {x.dtype}")
     if x.device.type == "cpu":
         return gelu_tanh_ref(x)
-    if x.device.type != "cuda" or not x.is_contiguous() or x.numel() >= 2**31:
+    if x.device.type != "cuda" or not x.is_contiguous():
         raise ValueError("gelu_tanh's kernel takes a contiguous CUDA tensor")
     triton, kernel, _ = _kernel()
     y = torch.empty_like(x)
@@ -116,7 +117,7 @@ def gelu_tanh_bwd(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu" and dy.device.type == "cpu":
         return gelu_tanh_bwd_ref(x, dy)
     if (x.device.type != "cuda" or dy.device != x.device or not x.is_contiguous()
-            or not dy.is_contiguous() or x.numel() >= 2**31):
+            or not dy.is_contiguous()):
         raise ValueError("gelu_tanh_bwd's kernel takes contiguous tensors on one CUDA device")
     triton, _, kernel = _kernel()
     dx = torch.empty_like(x)

@@ -1,11 +1,17 @@
-"""One block step of causal ring attention: the CUDA kernel
-``csrc/ring_attention.cu`` and its plain version.
+"""One block step of causal ring attention, forward and backward: the CUDA
+kernels ``csrc/ring_attention.cu`` and their plain versions.
 
 Counterpart of ``operator_forge/tpu/demo.py::_ring_attention_body.step``
 lines 276-298, without the ``ppermute`` of the K/V block: the f32 scores of
 a query block against the block visiting it, masked causally from the two
 blocks' ring positions, and the online-softmax update of the carry ``(m,
 num, den)``.  ``demo.ring_attention`` calls it once per ring step.
+
+The backward step is the transpose of the same lines that ``jax.grad``
+derives through the ring's ``scan``: from the forward's final ``(m, den)``
+it recomputes the block's probabilities ``p = exp(score - m) / den`` and
+adds the block's share of dQ, dK and dV into f32 accumulators.
+``demo.RingAttention`` calls it once per rotation of its backward ring.
 """
 
 from __future__ import annotations
@@ -18,10 +24,25 @@ import torch
 
 from . import build
 
-MAX_SEQ = 1024
-MAX_HEAD_DIM = 128
+# the widest head whose rows a block of either kernel holds in shared
+# memory (``kMaxHeadDim`` in the source); the sequence has no limit
+MAX_HEAD_DIM = 3072
 
 launches = 0
+bwd_launches = 0
+
+
+def _scale(d: int, device) -> torch.Tensor:
+    # 1 / sqrt(f32(d)) in f32 on the device, as the reference rounds it
+    return 1.0 / torch.tensor(d, dtype=torch.float32, device=device).sqrt()
+
+
+def _seen(s: int, q_block: int, k_block: int, device) -> torch.Tensor:
+    """[s, s]: whether query i (at ``q_block * s + i``) sees key j (at
+    ``k_block * s + j``)."""
+    q_pos = q_block * s + torch.arange(s, device=device)[:, None]
+    k_pos = k_block * s + torch.arange(s, device=device)[None, :]
+    return k_pos <= q_pos
 
 
 def ring_step_ref(q, k_blk, v_blk, m, num, den, q_block: int, k_block: int) -> tuple:
@@ -30,13 +51,8 @@ def ring_step_ref(q, k_blk, v_blk, m, num, den, q_block: int, k_block: int) -> t
     ring position (``my``) and ``k_block`` the visiting block's
     (``origin``)."""
     s, d = q.shape[-2:]
-    # 1 / sqrt(f32(d)) in f32 on the device, as the reference rounds it
-    scale = 1.0 / torch.tensor(d, dtype=torch.float32, device=q.device).sqrt()
-    q32 = q.float()
-    scores = (q32 @ k_blk.float().transpose(-1, -2)) * scale
-    q_pos = q_block * s + torch.arange(s, device=q.device)[:, None]
-    k_pos = k_block * s + torch.arange(s, device=q.device)[None, :]
-    scores = torch.where(k_pos <= q_pos, scores, -math.inf)
+    scores = (q.float() @ k_blk.float().transpose(-1, -2)) * _scale(d, q.device)
+    scores = torch.where(_seen(s, q_block, k_block, q.device), scores, -math.inf)
     block_max = scores.amax(dim=-1, keepdim=True)
     new_m = torch.maximum(m, block_max)
     shift = torch.where(torch.isinf(new_m), 0.0, new_m)
@@ -45,6 +61,27 @@ def ring_step_ref(q, k_blk, v_blk, m, num, den, q_block: int, k_block: int) -> t
     num = num * correction + probs @ v_blk.float()
     den = den * correction + probs.sum(dim=-1, keepdim=True)
     return new_m, num, den
+
+
+def ring_step_bwd_ref(q, k_blk, v_blk, dout, m, den, big_d, q_block: int, k_block: int,
+                      dq, dk_blk, dv_blk) -> tuple:
+    """Plain PyTorch version of the backward step: returns the new f32
+    ``(dq, dk_blk, dv_blk)`` as new tensors.  ``dout`` is the output's
+    gradient (q's type), ``m`` and ``den`` the forward's final carry and
+    ``big_d`` each row's ``sum(dout * out)`` with ``out = num / den`` in f32,
+    all ``[b, h, s, 1]`` f32 but ``dout``.  With the scores rescored as the
+    forward scores them, ``p = exp(score - m) / den`` (a division),
+    ``dP = dout . v``, and ``dS = p (dP - D) * scale`` (the transpose of
+    the forward's product by ``scale``): dq gains ``dS k``, dk ``dS^T q``
+    and dv ``p^T dout``.  A later block (every key masked) adds nothing."""
+    s, d = q.shape[-2:]
+    scale = _scale(d, q.device)
+    q32, k32, v32, do32 = q.float(), k_blk.float(), v_blk.float(), dout.float()
+    scores = (q32 @ k32.transpose(-1, -2)) * scale
+    p = torch.where(_seen(s, q_block, k_block, q.device), torch.exp(scores - m) / den, 0.0)
+    d_s = p * ((do32 @ v32.transpose(-1, -2)) - big_d) * scale
+    return (dq + d_s @ k32, dk_blk + d_s.transpose(-1, -2) @ q32,
+            dv_blk + p.transpose(-1, -2) @ do32)
 
 
 def _check(q, k_blk, v_blk, m, num, den) -> tuple[int, int, int, int]:
@@ -56,23 +93,50 @@ def _check(q, k_blk, v_blk, m, num, den) -> tuple[int, int, int, int]:
             raise ValueError(f"{name} must match q's {q.dtype} {tuple(q.shape)}, got {t.dtype} {tuple(t.shape)}")
     for name, t, shape in (("m", m, (b, h, s, 1)), ("num", num, (b, h, s, d)), ("den", den, (b, h, s, 1))):
         if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"the carry's {name} must be f32 {shape}, got {t.dtype} {tuple(t.shape)}")
-    if not 1 <= s <= MAX_SEQ or not 1 <= d <= MAX_HEAD_DIM or b > 65535 or h > 65535:
-        raise ValueError(
-            f"ring_step takes s <= {MAX_SEQ}, d <= {MAX_HEAD_DIM}, b and h <= 65535; "
-            f"got {tuple(q.shape)}"
-        )
+            raise ValueError(f"{name} must be f32 {shape}, got {t.dtype} {tuple(t.shape)}")
+    if q.numel() == 0:
+        raise ValueError(f"ring_step takes a non-empty block, got {tuple(q.shape)}")
     return b, h, s, d
+
+
+def _plain(what: str, tensors, q_block: int, k_block: int) -> bool:
+    """True where every tensor lies on the CPU (the plain version), False
+    where the kernel takes them; raise otherwise, and where the kernel
+    cannot take the head's width."""
+    if q_block < 0 or k_block < 0:
+        raise ValueError(f"ring positions are >= 0, got {q_block}, {k_block}")
+    if all(t.device.type == "cpu" for t in tensors):
+        return True
+    q = tensors[0]
+    if (q.device.type != "cuda" or any(t.device != q.device for t in tensors)
+            or not all(t.is_contiguous() for t in tensors)):
+        raise ValueError(f"{what}'s kernel takes contiguous tensors on one CUDA device")
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(
+            f"{what}'s kernel takes head_dim <= {MAX_HEAD_DIM}, the widest whose rows fit "
+            f"in a block's shared memory; got {q.shape[-1]}"
+        )
+    return False
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.library("ring_attention")
-    for name in ("ring_step_f32", "ring_step_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    for name, pointers in (("ring_step", 6), ("ring_step_bwd", 10)):
+        for dtype in ("f32", "bf16"):
+            fn = getattr(lib, f"{name}_{dtype}")
+            fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib
+
+
+def _launch(name: str, tensors, b: int, h: int, s: int, d: int, q_block: int, k_block: int) -> None:
+    lib = _library()
+    fn = getattr(lib, f"{name}_{'bf16' if tensors[0].dtype == torch.bfloat16 else 'f32'}")
+    with torch.cuda.device(tensors[0].device):
+        status = fn(*(t.data_ptr() for t in tensors), b, h, s, d, q_block, k_block,
+                    torch.cuda.current_stream().cuda_stream)
+    build.check(lib, status, name)
 
 
 def ring_step(q, k_blk, v_blk, m, num, den, q_block: int, k_block: int) -> tuple:
@@ -81,27 +145,46 @@ def ring_step(q, k_blk, v_blk, m, num, den, q_block: int, k_block: int) -> tuple
     f32 or bf16 ``[b, h, s, d]``; query ``i`` sits at ``q_block * s + i``
     and key ``j`` at ``k_block * s + j``.  The reference's carry is dead
     after each step, so updating it in place computes the same function
-    without a copy.  CPU tensors take the plain version; CUDA tensors one
-    launch of the kernel, also for a later block (``k_block > q_block``),
-    whose keys are all masked: its blocks exit at once and the carry keeps
-    its bits."""
+    without a copy (autograd goes through ``demo.RingAttention``, whose
+    forward records no graph).  CPU tensors take the plain version; CUDA
+    tensors one launch of the kernel, also for a later block (``k_block >
+    q_block``), whose keys are all masked: its blocks exit at once and the
+    carry keeps its bits."""
     global launches
     b, h, s, d = _check(q, k_blk, v_blk, m, num, den)
-    if q_block < 0 or k_block < 0:
-        raise ValueError(f"ring positions are >= 0, got {q_block}, {k_block}")
     tensors = (q, k_blk, v_blk, m, num, den)
-    if all(t.device.type == "cpu" for t in tensors):
+    if _plain("ring_step", tensors, q_block, k_block):
         for t, new in zip((m, num, den), ring_step_ref(*tensors, q_block, k_block)):
             t.copy_(new)
         return m, num, den
-    if (q.device.type != "cuda" or any(t.device != q.device for t in tensors)
-            or not all(t.is_contiguous() for t in tensors)):
-        raise ValueError("ring_step's kernel takes contiguous tensors on one CUDA device")
-    lib = _library()
-    fn = lib.ring_step_bf16 if q.dtype == torch.bfloat16 else lib.ring_step_f32
-    with torch.cuda.device(q.device):
-        status = fn(*(t.data_ptr() for t in tensors), b, h, s, d, q_block, k_block,
-                    torch.cuda.current_stream().cuda_stream)
-    build.check(lib, status, "ring_step")
+    _launch("ring_step", tensors, b, h, s, d, q_block, k_block)
     launches += 1
     return m, num, den
+
+
+def ring_step_bwd(q, k_blk, v_blk, dout, m, den, big_d, q_block: int, k_block: int,
+                  dq, dk_blk, dv_blk) -> tuple:
+    """One backward ring step: adds the block's share into the f32
+    accumulators ``dq, dk_blk, dv_blk [b, h, s, d]`` in place and returns
+    them.  ``q, k_blk, v_blk, dout`` are f32 or bf16 ``[b, h, s, d]`` of one
+    type; ``m, den, big_d`` f32 ``[b, h, s, 1]`` (see ``ring_step_bwd_ref``).
+    CPU tensors take the plain version; CUDA tensors one launch of the
+    kernel, whose blocks of a later block exit at once, leaving the
+    accumulators' bits as they were."""
+    global bwd_launches
+    b, h, s, d = _check(q, k_blk, v_blk, m, dq, den)
+    for name, t, dtype, shape in (
+        ("dout", dout, q.dtype, q.shape), ("big_d", big_d, torch.float32, m.shape),
+        ("dk_blk", dk_blk, torch.float32, q.shape), ("dv_blk", dv_blk, torch.float32, q.shape),
+    ):
+        if t.dtype != dtype or t.shape != shape:
+            raise ValueError(f"{name} must be {dtype} {tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
+    tensors = (q, k_blk, v_blk, dout, m, den, big_d, dq, dk_blk, dv_blk)
+    if _plain("ring_step_bwd", tensors, q_block, k_block):
+        for t, new in zip((dq, dk_blk, dv_blk), ring_step_bwd_ref(*tensors[:7], q_block, k_block,
+                                                                  dq, dk_blk, dv_blk)):
+            t.copy_(new)
+        return dq, dk_blk, dv_blk
+    _launch("ring_step_bwd", tensors, b, h, s, d, q_block, k_block)
+    bwd_launches += 1
+    return dq, dk_blk, dv_blk

@@ -9,7 +9,8 @@ it reads x and gain once and writes y once, 524,800 B: 0.16 us at
 3.35 TB/s; its 0.26 MFLOP are nothing beside that.  At this size it is
 bound by launch overhead.  Design: one program per row, the whole row in
 registers, so x is read once and the reduction needs no shared memory or
-second pass; the divisions and the square root round as IEEE's (``div_rn``,
+second pass (a row wider than 16384 columns goes in chunks: a pass for the
+sum of squares, then a writing pass; row offsets are 64-bit); the divisions and the square root round as IEEE's (``div_rn``,
 ``sqrt_rn``), as the reference's do.  Triton serves as well as CUDA here:
 there is no tensor-core work, only a row reduction and an elementwise pass.
 
@@ -19,7 +20,9 @@ and ``dgain = sum over rows of dy * xhat``, all in f32.  Its kernel is CUDA
 C++, ``csrc/rmsnorm_bwd.cu``: one launch of one thread-block cluster of
 16 blocks (``cluster()``), which writes dx row by row and sums dgain's columns
 first in each block's shared memory and then across the cluster through
-distributed shared memory, which Triton does not reach.  No scratch in
+distributed shared memory, which Triton does not reach (a window of
+columns at a time where a row's sums would not fit, or would chain more
+than 1024 rows).  No scratch in
 device memory, no atomics: dgain repeats bit for bit.  The source's note
 has its bound and design.  ``rmsnorm`` ties the two directions together as
 an autograd ``Function``.
@@ -35,7 +38,10 @@ import torch
 from . import build
 
 EPS = 1e-6
-MAX_COLS = 16384
+# a row of up to ROW_BLOCK columns sits in registers; a wider one goes
+# CHUNK columns at a time
+ROW_BLOCK = 16384
+CHUNK = 8192
 
 launches = 0
 bwd_launches = 0
@@ -67,15 +73,29 @@ def _kernel():
     import triton.language as tl
 
     @triton.jit
-    def rmsnorm_kernel(x_ptr, gain_ptr, y_ptr, n_cols, eps, BLOCK: tl.constexpr):
-        row = tl.program_id(0)
+    def rmsnorm_kernel(x_ptr, gain_ptr, y_ptr, n_cols, eps, BLOCK: tl.constexpr,
+                       ONE: tl.constexpr):
+        row = tl.program_id(0).to(tl.int64)
+        x_row, y_row = x_ptr + row * n_cols, y_ptr + row * n_cols
         cols = tl.arange(0, BLOCK)
-        inside = cols < n_cols
-        x = tl.load(x_ptr + row * n_cols + cols, mask=inside, other=0.0)
-        mean_sq = tl.div_rn(tl.sum(x * x, axis=0), n_cols.to(tl.float32))
-        norm = tl.sqrt_rn(mean_sq + eps)
-        gain = tl.load(gain_ptr + cols, mask=inside, other=0.0)
-        tl.store(y_ptr + row * n_cols + cols, tl.div_rn(x, norm) * gain, mask=inside)
+        if ONE:  # the row in registers
+            inside = cols < n_cols
+            x = tl.load(x_row + cols, mask=inside, other=0.0)
+            mean_sq = tl.div_rn(tl.sum(x * x, axis=0), n_cols.to(tl.float32))
+            norm = tl.sqrt_rn(mean_sq + eps)
+            gain = tl.load(gain_ptr + cols, mask=inside, other=0.0)
+            tl.store(y_row + cols, tl.div_rn(x, norm) * gain, mask=inside)
+        else:  # chunk by chunk: the sum of squares, then the writing pass
+            acc = tl.zeros([BLOCK], dtype=tl.float32)
+            for c0 in range(0, n_cols, BLOCK):
+                x = tl.load(x_row + c0 + cols, mask=c0 + cols < n_cols, other=0.0)
+                acc += x * x
+            norm = tl.sqrt_rn(tl.div_rn(tl.sum(acc, axis=0), n_cols.to(tl.float32)) + eps)
+            for c0 in range(0, n_cols, BLOCK):
+                inside = c0 + cols < n_cols
+                x = tl.load(x_row + c0 + cols, mask=inside, other=0.0)
+                gain = tl.load(gain_ptr + c0 + cols, mask=inside, other=0.0)
+                tl.store(y_row + c0 + cols, tl.div_rn(x, norm) * gain, mask=inside)
 
     return triton, rmsnorm_kernel
 
@@ -85,16 +105,15 @@ def _check(x: torch.Tensor, gain: torch.Tensor, what: str) -> bool:
     CPU (the plain version), False for the kernel, raise otherwise."""
     d = x.shape[-1]
     if (x.dtype != torch.float32 or gain.dtype != torch.float32
-            or tuple(gain.shape) != (d,) or not 1 <= d <= MAX_COLS):
+            or tuple(gain.shape) != (d,) or d < 1):
         raise ValueError(
-            f"{what} takes f32 [..., d] and f32 gain [d] with d <= {MAX_COLS}, "
+            f"{what} takes f32 [..., d] and f32 gain [d] with d >= 1, "
             f"got {x.dtype} {tuple(x.shape)} and {gain.dtype} {tuple(gain.shape)}"
         )
     if x.device.type == "cpu" and gain.device.type == "cpu":
         return True
     if (x.device.type != "cuda" or gain.device != x.device
-            or not x.is_contiguous() or not gain.is_contiguous()
-            or x.numel() >= 2**31):
+            or not x.is_contiguous() or not gain.is_contiguous()):
         raise ValueError(f"{what}'s kernel takes contiguous tensors on one CUDA device")
     return False
 
@@ -108,10 +127,11 @@ def rmsnorm_fwd(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
         return rmsnorm_ref(x, gain)
     triton, kernel = _kernel()
     y = torch.empty_like(x)
-    block = triton.next_power_of_2(d)
+    block = triton.next_power_of_2(d) if d <= ROW_BLOCK else CHUNK
     with torch.cuda.device(x.device):
         kernel[(x.numel() // d,)](
-            x, gain, y, d, EPS, BLOCK=block, num_warps=min(max(block // 128, 1), 8)
+            x, gain, y, d, EPS, BLOCK=block, ONE=d <= block,
+            num_warps=min(max(block // 128, 1), 8),
         )
     launches += 1
     return y
@@ -138,7 +158,8 @@ def rmsnorm_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(dx, dgain)`` of ``rmsnorm(x, gain)`` for the output gradient
     ``dy`` (f32, x's shape): the plain version for CPU tensors, one launch
-    of the CUDA kernel for CUDA tensors."""
+    of the CUDA kernel for CUDA tensors (one a window of columns, counted
+    once, for rows too wide or too many for one; see the source)."""
     global bwd_launches
     if dy.dtype != torch.float32 or dy.shape != x.shape:
         raise ValueError(

@@ -83,8 +83,8 @@ def test_attention_wrapper_takes_plain_version_on_cpu():
 @pytest.mark.parametrize(
     "qkv, n_heads",
     [
-        (torch.zeros(1, 8, 3 * 256, dtype=torch.bfloat16), 1),   # head_dim 256
-        (torch.zeros(1, 1025, 96, dtype=torch.bfloat16), 1),     # seq 1025
+        (torch.zeros(1, 8, 0, dtype=torch.bfloat16), 1),         # head_dim 0
+        (torch.zeros(1, 0, 96, dtype=torch.bfloat16), 1),        # seq 0
         (torch.zeros(1, 8, 96, dtype=torch.float32), 1),         # f32
         (torch.zeros(1, 8, 96, dtype=torch.bfloat16), 5),        # 32 % 5 != 0
     ],

@@ -7,9 +7,12 @@ Multi-rank runs are gloo process groups of spawned ranks
 (``operator_forge_torch.ranks.run_ranks``); the ranks run
 ``tests/torch_ranks.py``, which imports no JAX.  Tolerances: the ring
 against JAX's ring within rtol and atol 2e-5, the reference's own bar
-(``test_tpu_demo.py:138-181``; measured 4.8e-7); one block step of the
-plain version against the reference's arithmetic within rtol 1e-5 and atol
-1e-6, f32 sums taken in another order.
+(``test_tpu_demo.py:138-181``; measured 4.8e-7), and so is its gradient
+against ``jax.vjp`` of the reference's ring in f32; in bf16 each gradient
+within 2 bf16 ulps of its max |g|.  One block step of the plain version
+against the reference's arithmetic within rtol 1e-5 and atol 1e-6, and the
+backward step against ``jax.vjp`` of it within rtol 1e-5 and atol 2e-6, f32
+sums taken in another order.
 """
 
 import math
@@ -27,6 +30,7 @@ import torch_ranks
 from operator_forge.tpu import demo as jdemo
 from operator_forge_torch import demo, ranks
 from operator_forge_torch.entry import dryrun_multichip
+from operator_forge_torch.kernels import bf16_ulp
 from operator_forge_torch.kernels import ring_attention as ra
 
 RANKS_TIMEOUT = 240
@@ -104,16 +108,110 @@ def test_ring_step_on_cpu_updates_the_carry_in_place():
     assert all(torch.equal(t, w) for t, w in zip((m, num, den), want))
 
 
+def _block_grads(case, shape=(2, 3, 17, 16), seed=0):
+    """The gradient of ``out = num / den`` after the step of ``case`` (and,
+    for a carry that has seen it, the diagonal block of other keys before
+    it) for a cotangent ``dout``: JAX's, by ``jax.vjp`` of ``_jax_step``,
+    and the port's, one ``ring_step_bwd_ref`` a block from zero
+    accumulators.  Returns ``(got, want)``, each ``(dq, dk, dv)``."""
+    rng = np.random.default_rng(seed)
+    q, k, v, k0, v0, dout = (rng.standard_normal(shape, dtype=np.float32) for _ in range(6))
+    my, origin, carry = CASES[case]
+    b, h, s, d = shape
+    fresh = (np.full((b, h, s, 1), -np.inf, np.float32), np.zeros(shape, np.float32),
+             np.zeros((b, h, s, 1), np.float32))
+
+    def out_of(q, k, v):
+        start = _jax_step(q, k0, v0, *fresh, my, my) if carry == "seen" else fresh
+        _, num, den = _jax_step(q, k, v, *start, my, origin)
+        return num / den
+
+    _, vjp = jax.vjp(out_of, q, k, v)
+    want = [np.asarray(t) for t in vjp(dout)]
+
+    tq, tk, tv, tk0, tv0, tdo = (torch.from_numpy(a) for a in (q, k, v, k0, v0, dout))
+    state = tuple(torch.from_numpy(a) for a in fresh)
+    blocks = ([(tk0, tv0, my)] if carry == "seen" else []) + [(tk, tv, origin)]
+    for kb, vb, at in blocks:
+        state = ra.ring_step_ref(tq, kb, vb, *state, my, at)
+    m, num, den = state
+    big_d = (tdo * (num / den)).sum(dim=-1, keepdim=True)
+    dq = torch.zeros(shape)
+    for kb, vb, at in blocks:
+        dq, dk, dv = ra.ring_step_bwd_ref(tq, kb, vb, tdo, m, den, big_d, my, at,
+                                          dq, torch.zeros(shape), torch.zeros(shape))
+    return (dq, dk, dv), want
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_ring_step_bwd_ref_matches_jax(case):
+    """Within rtol 1e-5 and atol 2e-6 of ``jax.vjp`` of the reference's
+    step arithmetic (measured 6.0e-7 against gradients up to 3.5): f32,
+    sums in another order, and JAX's gradient also passes through the
+    block max and the shift, which cancel exactly only without rounding.
+    A later block adds nothing."""
+    got, want = _block_grads(case)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=2e-6, err_msg=name)
+    if case == "later":
+        assert not got[1].any() and not got[2].any()
+
+
+def test_ring_step_bwd_on_cpu_updates_the_accumulators_in_place():
+    """The wrapper on CPU tensors: the plain version's values, written into
+    the accumulators it was given, and no launch; a later block leaves
+    their bits as they were."""
+    rng = np.random.default_rng(4)
+    shape = (2, 3, 17, 16)
+    q, k, v, dout, dq, dk, dv = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                                 for _ in range(7))
+    m, den, big_d = (torch.from_numpy(rng.random((2, 3, 17, 1), dtype=np.float32)) + 1 for _ in range(3))
+    for my, origin in ((2, 1), (2, 3)):
+        accumulators = [t.clone() for t in (dq, dk, dv)]
+        want = ra.ring_step_bwd_ref(q, k, v, dout, m, den, big_d, my, origin, *accumulators)
+        before = ra.bwd_launches
+        out = ra.ring_step_bwd(q, k, v, dout, m, den, big_d, my, origin, *accumulators)
+        assert ra.bwd_launches == before
+        assert all(o is t for o, t in zip(out, accumulators))
+        assert all(torch.equal(t, w) for t, w in zip(accumulators, want))
+        if origin > my:
+            assert all(torch.equal(t, w) for t, w in zip(accumulators, (dq, dk, dv)))
+
+
+@pytest.mark.parametrize("name", ["dtype", "dout", "stats", "accumulator", "position", "device"])
+def test_ring_step_bwd_rejects_what_the_kernel_does_not_take(name):
+    q = torch.zeros(1, 2, 8, 4)
+    row = torch.ones(1, 2, 8, 1)
+    args = [q, q, q, q, row, row, row, 0, 0, q.clone(), q.clone(), q.clone()]
+    if name == "dtype":
+        args[1] = q.bfloat16()
+    elif name == "dout":
+        args[3] = q.bfloat16()
+    elif name == "stats":
+        args[6] = torch.ones(1, 2, 8, 4)
+    elif name == "accumulator":
+        args[10] = q.bfloat16()
+    elif name == "position":
+        args[8] = -1
+    elif name == "device":
+        args[9] = args[9].to("meta")
+    before = ra.bwd_launches
+    with pytest.raises(ValueError):
+        ra.ring_step_bwd(*args)
+    assert ra.bwd_launches == before
+
+
 def _bad(name):
     q = torch.zeros(1, 2, 8, 4)
     carry = [torch.zeros(1, 2, 8, 1), torch.zeros(1, 2, 8, 4), torch.zeros(1, 2, 8, 1)]
     args = [q, q, q, *carry, 0, 0]
-    if name == "seq":
-        big = torch.zeros(1, 1, 1025, 4)
-        args = [big, big, big, torch.zeros(1, 1, 1025, 1), big, torch.zeros(1, 1, 1025, 1), 0, 0]
-    elif name == "head_dim":
-        big = torch.zeros(1, 1, 8, 129)
-        args = [big, big, big, torch.zeros(1, 1, 8, 1), big, torch.zeros(1, 1, 8, 1), 0, 0]
+    if name == "seq":  # an empty block: every length from 1 up is taken
+        empty = torch.zeros(1, 1, 0, 4)
+        args = [empty, empty, empty, torch.zeros(1, 1, 0, 1), empty, torch.zeros(1, 1, 0, 1), 0, 0]
+    elif name == "head_dim":  # heads of no width: every width from 1 up is taken on the CPU
+        empty = torch.zeros(1, 1, 8, 0)
+        args = [empty, empty, empty, torch.zeros(1, 1, 8, 1), empty, torch.zeros(1, 1, 8, 1), 0, 0]
     elif name == "dtype":
         args[1] = q.bfloat16()
     elif name == "carry":
@@ -180,30 +278,85 @@ def test_dense_causal_attention_matches_jax(dtype):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=tol, atol=tol)
 
 
+def _jax_ring(q, k, v, dout, dtype: str, n: int) -> tuple:
+    """``jdemo.ring_attention`` on ``n`` CPU devices and its gradient by
+    ``jax.vjp``: ``(out, dq, dk, dv)`` as f32 numpy."""
+    mesh = Mesh(np.asarray(jax.devices()[:n]), ("seq",))
+    q, k, v, dout = (jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v, dout))
+    out, vjp = jax.vjp(lambda *qkv: jdemo.ring_attention(*qkv, mesh, axis="seq"), q, k, v)
+    return tuple(np.asarray(t, np.float32) for t in (out, *vjp(dout)))
+
+
+def _close(got, want, dtype: str) -> None:
+    """f32: rtol and atol 2e-5, the forward's bar; bf16: each array within
+    2 bf16 ulps of its max |value| (both round an f32 result once, which
+    may differ in its last bits)."""
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, rtol=2e-5, atol=2e-5, err_msg=name)
+        else:
+            tol = 2 * float(bf16_ulp(torch.tensor(np.abs(w).max())))
+            assert float(np.abs(g - w).max()) <= tol, name
+
+
+RING_SHAPE = (2, 2, 32, 16)   # the 4-rank ring: blocks of 8
+ALONE_SHAPE = (1, 2, 8, 8)    # a ring of one rank
+LONG_SHAPE = (1, 2, 1100, 8)  # a ring of one rank past 1024 keys
+
+
 @pytest.fixture(scope="module")
 def ring_run():
-    """Ring attention in 4 gloo ranks, spawned once: the 4-rank ring at
-    [2, 2, 32, 16] and, on each rank, a 1-rank ring at [1, 2, 8, 8]."""
+    """Ring attention and its gradient in 4 gloo ranks, spawned once: the
+    4-rank ring at ``RING_SHAPE`` in f32 and bf16 and, on each rank, a
+    1-rank ring at ``ALONE_SHAPE`` (q = k = v, f32 and bf16) and at
+    ``LONG_SHAPE`` (f32)."""
     rng = np.random.default_rng(7)
-    q, k, v = (rng.standard_normal((2, 2, 32, 16), dtype=np.float32) for _ in range(3))
-    small = rng.standard_normal((1, 2, 8, 8), dtype=np.float32)
-    out = ranks.run_ranks(4, torch_ranks.ring, (q, k, v, small), "cpu", RANKS_TIMEOUT)
-    return dict(q=q, k=k, v=v, small=small, ringed=np.concatenate([o[0] for o in out], axis=2),
-                alone=[o[1] for o in out])
+    q, k, v, dout = (rng.standard_normal(RING_SHAPE, dtype=np.float32) for _ in range(4))
+    small, d_small = (rng.standard_normal(ALONE_SHAPE, dtype=np.float32) for _ in range(2))
+    long = [rng.standard_normal(LONG_SHAPE, dtype=np.float32) for _ in range(4)]
+    rings = [(q, k, v, dout, dtype) for dtype in ("float32", "bfloat16")]
+    alone = [(small, small, small, d_small, dtype) for dtype in ("float32", "bfloat16")]
+    alone.append((*long, "float32"))
+    out = ranks.run_ranks(4, torch_ranks.ring, (rings, alone), "cpu", RANKS_TIMEOUT)
+    joined = [tuple(np.concatenate([o["rings"][i][t] for o in out], axis=2) for t in range(4))
+              for i in range(len(rings))]
+    return dict(rings=rings, alone=alone, joined=joined, by_rank=[o["alone"] for o in out])
 
 
 def test_ring_attention_matches_jax_on_4_ranks(ring_run):
+    q, k, v, _, _ = ring_run["rings"][0]
     mesh = Mesh(np.asarray(jax.devices()[:4]), ("seq",))
-    want = jdemo.ring_attention(ring_run["q"], ring_run["k"], ring_run["v"], mesh, axis="seq")
-    np.testing.assert_allclose(ring_run["ringed"], np.asarray(want), rtol=2e-5, atol=2e-5)
+    want = jdemo.ring_attention(q, k, v, mesh, axis="seq")
+    np.testing.assert_allclose(ring_run["joined"][0][0], np.asarray(want), rtol=2e-5, atol=2e-5)
 
 
 def test_single_rank_ring_matches_jax(ring_run):
-    small = ring_run["small"]
+    small = ring_run["alone"][0][0]
     mesh = Mesh(np.asarray(jax.devices()[:1]), ("seq",))
     want = np.asarray(jdemo.ring_attention(small, small, small, mesh, axis="seq"))
-    for got in ring_run["alone"]:
-        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    for alone in ring_run["by_rank"]:
+        np.testing.assert_allclose(alone[0][0], want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_attention_gradient_matches_jax_on_4_ranks(ring_run, dtype):
+    """``backward()`` through the 4-rank ring against ``jax.vjp`` of the
+    reference's ring on 4 devices (see ``_close``)."""
+    index = ("float32", "bfloat16").index(dtype)
+    q, k, v, dout, _ = ring_run["rings"][index]
+    _close(ring_run["joined"][index], _jax_ring(q, k, v, dout, dtype, 4), dtype)
+
+
+@pytest.mark.parametrize("case", ["float32", "bfloat16", "long"])
+def test_single_rank_ring_gradient_matches_jax(ring_run, case):
+    """The ring of one rank, at ``ALONE_SHAPE`` and at a block of 1100
+    keys, and its gradient, against the reference on one device, on
+    every rank."""
+    index = ("float32", "bfloat16", "long").index(case)
+    *arrays, dtype = ring_run["alone"][index]
+    want = _jax_ring(*arrays, dtype, 1)
+    for alone in ring_run["by_rank"]:
+        _close(alone[index], want, dtype)
 
 
 def test_dryrun_multichip_on_cpu_is_finite():

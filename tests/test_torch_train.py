@@ -168,3 +168,45 @@ def test_entry_points_pin_f32_accumulation(name):
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+# Configs past the kernels' former caps, at small widths: a sequence of
+# 1100 (attention took at most 1024), a vocab of 20000 (cross entropy took
+# at most 16384) and a head of 256 (attention took at most 128).
+DOMAIN_BASE = dict(d_model=32, n_heads=2, n_layers=1, d_ff=64, batch=1, vocab=64)
+DOMAIN = {
+    "seq_1100": dict(seq_len=1100),
+    "vocab_20000": dict(vocab=20000, seq_len=8),
+    "head_dim_256": dict(d_model=256, n_heads=1, seq_len=8),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(DOMAIN))
+def domain_step(request):
+    """The reference's loss and gradients and the port's, on the CPU, at a
+    config past a former cap."""
+    kwargs = {**DOMAIN_BASE, **DOMAIN[request.param]}
+    jconfig, config = jdemo.DemoConfig(**kwargs), demo.DemoConfig(**kwargs)
+    jparams = jdemo.init_params(jconfig, jax.random.PRNGKey(0))
+    jtokens = jax.random.randint(
+        jax.random.PRNGKey(1), (jconfig.batch, jconfig.seq_len + 1), 0, jconfig.vocab
+    )
+    jloss, jgrads = jax.value_and_grad(jdemo.loss_fn)(jparams, jtokens, jconfig)
+    params = demo.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    loss, grads = demo.value_and_grad(params, torch.from_numpy(np.array(jtokens)).long(), config)
+    return dict(want_loss=float(jloss), want=jax.tree_util.tree_map(np.asarray, jgrads),
+                loss=float(loss), grads=grads)
+
+
+def test_loss_past_the_former_caps_matches_jax(domain_step):
+    """The loss within 5e-5, as at the configs above."""
+    assert abs(domain_step["loss"] - domain_step["want_loss"]) <= 5e-5
+
+
+def test_gradients_past_the_former_caps_match_jax(domain_step):
+    """Each gradient leaf within 2 bf16 ulps of that leaf's max |g|."""
+    got, want = demo.tree_leaves(domain_step["grads"]), demo.tree_leaves(domain_step["want"])
+    for i, (g, w) in enumerate(zip(got, want)):
+        tol = 2 * float(bf16_ulp(torch.tensor(np.abs(w).max())))
+        err = float(np.abs(g.numpy() - w).max())
+        assert err <= tol, f"leaf {i}: max |err| {err:.3e} > 2 bf16 ulps of max |g| ({tol:.3e})"

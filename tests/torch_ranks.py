@@ -16,20 +16,35 @@ def _numpy(tree: dict) -> dict:
     return demo.tree_map(lambda t: t.detach().numpy(), tree)
 
 
-def ring(q: np.ndarray, k: np.ndarray, v: np.ndarray, small: np.ndarray) -> tuple:
-    """This rank's output block of ring attention over all ranks on the
-    sequence blocks of ``q, k, v``, and ring attention of ``small`` on a
-    ring of one rank (a mesh dim of size 1)."""
+def _ring_grads(q, k, v, dout, dtype: str, mesh) -> tuple:
+    """Ring attention of ``q, k, v`` (numpy f32, cast to ``dtype``) over
+    ``mesh``'s ``seq`` dim and its gradient for ``dout``, through
+    ``backward()``: ``(out, dq, dk, dv)`` as f32 numpy."""
+    def typed(a):
+        return torch.from_numpy(a).to(getattr(torch, dtype)).requires_grad_()
+
+    q, k, v = typed(q), typed(k), typed(v)
+    out = demo.ring_attention(q, k, v, mesh, axis="seq")
+    out.backward(torch.from_numpy(dout).to(out.dtype))
+    return tuple(t.detach().float().numpy() for t in (out, q.grad, k.grad, v.grad))
+
+
+def ring(rings: list, alone: list) -> dict:
+    """For each ``(q, k, v, dout, dtype)`` of ``rings``, this rank's blocks
+    of ring attention over all ranks on the sequence blocks and of its
+    gradient; for each of ``alone``, ring attention and its gradient on a
+    ring of one rank (a mesh dim of size 1).  See ``_ring_grads``."""
     n, rank = dist.get_world_size(), dist.get_rank()
     mesh = init_device_mesh("cpu", (n,), mesh_dim_names=("seq",))
 
     def mine(a):
-        return torch.from_numpy(a).chunk(n, dim=2)[rank].contiguous()
+        return np.ascontiguousarray(np.split(a, n, axis=2)[rank])
 
-    out = demo.ring_attention(mine(q), mine(k), mine(v), mesh, axis="seq")
-    alone = init_device_mesh("cpu", (n, 1), mesh_dim_names=("ranks", "seq"))
-    x = torch.from_numpy(small)
-    return out.numpy(), demo.ring_attention(x, x, x, alone, axis="seq").numpy()
+    one = init_device_mesh("cpu", (n, 1), mesh_dim_names=("ranks", "seq"))
+    return {
+        "rings": [_ring_grads(*map(mine, arrays), dtype, mesh) for *arrays, dtype in rings],
+        "alone": [_ring_grads(*arrays, dtype, one) for *arrays, dtype in alone],
+    }
 
 
 def megatron(group) -> dict:
