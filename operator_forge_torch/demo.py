@@ -11,6 +11,9 @@ keep the JAX layout: a dict ``{"embed", "unembed", "layers": [{"wqkv",
 reference is kept: bf16 operands for every product with f32 results, and
 the attention, RMSNorm, GELU and cross-entropy numerics of the kernels in
 ``kernels/``, each an autograd ``Function`` whose backward is a kernel too.
+Two of the casts are taken into the kernel beside them, with the same
+bits: RMSNorm writes the bf16 operand of the product after it, and cross
+entropy reads the bf16 logits and returns their gradient in bf16.
 The kernels run where the tensors are: a CPU tensor takes the plain
 version, a CUDA tensor the hand-written kernel.  The products, the residual
 adds, the embedding gather and the SGD update stay plain tensor code, as
@@ -36,7 +39,7 @@ from .kernels.attention import causal_attention
 from .kernels.cross_entropy import cross_entropy
 from .kernels.gelu import gelu_tanh
 from .kernels.ring_attention import ring_step, ring_step_bwd
-from .kernels.rmsnorm import rmsnorm
+from .kernels.rmsnorm import rmsnorm, rmsnorm_to_bf16
 
 
 @dataclass(frozen=True)
@@ -139,14 +142,31 @@ _rmsnorm = rmsnorm  # demo.py:71-73
 
 
 def _attention(x: torch.Tensor, layer: dict, config: DemoConfig, model=None) -> torch.Tensor:
-    qkv = _bf16_matmul(copy_to_model(x, model), layer["wqkv"])
+    """f32 or bf16 ``x``.  With a ``model`` group, ``x``'s gradient must
+    be all-reduced over it before it leaves (Megatron's "f"), as
+    ``rmsnorm_to_bf16`` does in ``_logits``."""
+    qkv = _bf16_matmul(x, layer["wqkv"])
     out = causal_attention(qkv, config.n_heads // _size(model))
     return reduce_from_model((out @ layer["wo"].to(torch.bfloat16)).float(), model)
 
 
 def _mlp(x: torch.Tensor, layer: dict, model=None) -> torch.Tensor:
-    h = gelu_tanh(_bf16_matmul(copy_to_model(x, model), layer["w1"]))
+    """f32 or bf16 ``x``, with ``_attention``'s condition on its gradient."""
+    h = gelu_tanh(_bf16_matmul(x, layer["w1"]))
     return reduce_from_model((h @ layer["w2"].to(torch.bfloat16)).float(), model)
+
+
+def _logits(params: dict, tokens: torch.Tensor, config: DemoConfig, model=None) -> torch.Tensor:
+    """Token ids [batch, seq] -> the bf16 product's logits [batch, seq,
+    vocab], before the reference widens them (``demo.py:108-109``).  Each
+    RMSNorm writes the bf16 operand of the product after it
+    (``rmsnorm_to_bf16``, which carries Megatron's "f" for the sharded
+    step), so no cast runs between the two."""
+    x = params["embed"][tokens]
+    for layer in params["layers"]:
+        x = x + _attention(rmsnorm_to_bf16(x, layer["ln1"], model), layer, config, model)
+        x = x + _mlp(rmsnorm_to_bf16(x, layer["ln2"], model), layer, model)
+    return gather_from_model(_bf16_matmul(copy_to_model(x, model), params["unembed"]), model)
 
 
 def forward(params: dict, tokens: torch.Tensor, config: DemoConfig, model=None) -> torch.Tensor:
@@ -154,18 +174,15 @@ def forward(params: dict, tokens: torch.Tensor, config: DemoConfig, model=None) 
     ``model`` process group, ``params`` are this rank's Megatron shards
     (``shard_params``) and the collectives join them; the logits come out
     whole on every rank of the group."""
-    x = params["embed"][tokens]
-    for layer in params["layers"]:
-        x = x + _attention(_rmsnorm(x, layer["ln1"]), layer, config, model)
-        x = x + _mlp(_rmsnorm(x, layer["ln2"]), layer, model)
-    logits = _bf16_matmul(copy_to_model(x, model), params["unembed"]).float()
-    return gather_from_model(logits, model)
+    return _logits(params, tokens, config, model).float()
 
 
 def loss_fn(params: dict, tokens: torch.Tensor, config: DemoConfig, model=None) -> torch.Tensor:
     """Next-token cross entropy of token ids [batch, seq + 1]: an f32
-    scalar."""
-    logits = forward(params, tokens[:, :-1], config, model)
+    scalar.  The bf16 logits go straight into the cross-entropy kernel,
+    which widens them as it reads them, and its gradient comes back in
+    bf16: the reference's widening and its transpose launch nothing."""
+    logits = _logits(params, tokens[:, :-1], config, model)
     return cross_entropy(logits, tokens[:, 1:].contiguous())
 
 

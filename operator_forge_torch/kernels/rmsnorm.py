@@ -1,18 +1,17 @@
-"""RMSNorm over the last dim: a Triton forward, a CUDA backward, and their
-plain versions.
+"""RMSNorm over the last dim: a CUDA forward and backward, and their plain
+versions.
 
 Counterpart of ``operator_forge/tpu/demo.py::_rmsnorm`` (lines 71-73):
 ``x / sqrt(mean(x²) + 1e-6) * gain`` in f32.
 
-Bound on an H100 SXM at DemoConfig() (x f32 [512, 128], gain f32 [128]):
-it reads x and gain once and writes y once, 524,800 B: 0.16 us at
-3.35 TB/s; its 0.26 MFLOP are nothing beside that.  At this size it is
-bound by launch overhead.  Design: one program per row, the whole row in
-registers, so x is read once and the reduction needs no shared memory or
-second pass (a row wider than 16384 columns goes in chunks: a pass for the
-sum of squares, then a writing pass; row offsets are 64-bit); the divisions and the square root round as IEEE's (``div_rn``,
-``sqrt_rn``), as the reference's do.  Triton serves as well as CUDA here:
-there is no tensor-core work, only a row reduction and an elementwise pass.
+The forward's kernel is CUDA C++, ``csrc/rmsnorm.cu``: a warp a row for
+rows of up to 1024 columns (the model's 128 in one 16-byte load a lane), a
+block a row past that, writing f32 or bf16.  The bf16 output is the
+reference's ``_rmsnorm(...).astype(bf16)``, the operand the next product
+reads (``demo.py:78,97``), rounded once from the same f32 value: so
+``rmsnorm_to_bf16`` takes in the cast that followed RMSNorm, and the model
+launches no cast between the two.  The source's note has the bound and the
+design.
 
 The backward is the transpose of the same lines.  With ``xhat = x / norm``
 and ``u = dy * gain``: ``dx = (u - xhat * mean(u * xhat)) / norm`` per row
@@ -20,12 +19,12 @@ and ``dgain = sum over rows of dy * xhat``, all in f32.  Its kernel is CUDA
 C++, ``csrc/rmsnorm_bwd.cu``: one launch of one thread-block cluster of
 16 blocks (``cluster()``), which writes dx row by row and sums dgain's columns
 first in each block's shared memory and then across the cluster through
-distributed shared memory, which Triton does not reach (a window of
+distributed shared memory (a window of
 columns at a time where a row's sums would not fit, or would chain more
 than 1024 rows).  No scratch in
 device memory, no atomics: dgain repeats bit for bit.  The source's note
-has its bound and design.  ``rmsnorm`` ties the two directions together as
-an autograd ``Function``.
+has its bound and design.  ``rmsnorm`` and ``rmsnorm_to_bf16`` tie the two
+directions together as autograd ``Function``s.
 """
 
 from __future__ import annotations
@@ -34,14 +33,11 @@ import ctypes
 import functools
 
 import torch
+import torch.distributed as dist
 
 from . import build
 
 EPS = 1e-6
-# a row of up to ROW_BLOCK columns sits in registers; a wider one goes
-# CHUNK columns at a time
-ROW_BLOCK = 16384
-CHUNK = 8192
 
 launches = 0
 bwd_launches = 0
@@ -64,42 +60,6 @@ def rmsnorm_bwd_ref(
     return dx, (dy * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
 
 
-@functools.cache
-def _kernel():
-    # Triton resolves the names a kernel uses through its module's globals,
-    # so ``tl`` is bound there, at the first launch rather than at import
-    global tl
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def rmsnorm_kernel(x_ptr, gain_ptr, y_ptr, n_cols, eps, BLOCK: tl.constexpr,
-                       ONE: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        x_row, y_row = x_ptr + row * n_cols, y_ptr + row * n_cols
-        cols = tl.arange(0, BLOCK)
-        if ONE:  # the row in registers
-            inside = cols < n_cols
-            x = tl.load(x_row + cols, mask=inside, other=0.0)
-            mean_sq = tl.div_rn(tl.sum(x * x, axis=0), n_cols.to(tl.float32))
-            norm = tl.sqrt_rn(mean_sq + eps)
-            gain = tl.load(gain_ptr + cols, mask=inside, other=0.0)
-            tl.store(y_row + cols, tl.div_rn(x, norm) * gain, mask=inside)
-        else:  # chunk by chunk: the sum of squares, then the writing pass
-            acc = tl.zeros([BLOCK], dtype=tl.float32)
-            for c0 in range(0, n_cols, BLOCK):
-                x = tl.load(x_row + c0 + cols, mask=c0 + cols < n_cols, other=0.0)
-                acc += x * x
-            norm = tl.sqrt_rn(tl.div_rn(tl.sum(acc, axis=0), n_cols.to(tl.float32)) + eps)
-            for c0 in range(0, n_cols, BLOCK):
-                inside = c0 + cols < n_cols
-                x = tl.load(x_row + c0 + cols, mask=inside, other=0.0)
-                gain = tl.load(gain_ptr + c0 + cols, mask=inside, other=0.0)
-                tl.store(y_row + c0 + cols, tl.div_rn(x, norm) * gain, mask=inside)
-
-    return triton, rmsnorm_kernel
-
-
 def _check(x: torch.Tensor, gain: torch.Tensor, what: str) -> bool:
     """Validate ``x [..., d]`` and ``gain [d]``; True where both lie on the
     CPU (the plain version), False for the kernel, raise otherwise."""
@@ -118,27 +78,39 @@ def _check(x: torch.Tensor, gain: torch.Tensor, what: str) -> bool:
     return False
 
 
-def rmsnorm_fwd(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
-    """f32 ``[..., d]`` with f32 gain ``[d]`` -> f32 ``[..., d]``: the plain
-    version for a CPU tensor, the Triton kernel for a CUDA tensor."""
+def rmsnorm_fwd(x: torch.Tensor, gain: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """f32 ``[..., d]`` with f32 gain ``[d]`` -> ``[..., d]`` of ``dtype``
+    (f32, or bf16 rounded once from the f32 value): the plain version for a
+    CPU tensor, one launch of the CUDA kernel for a CUDA tensor."""
     global launches
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"rmsnorm writes f32 or bf16, not {dtype}")
     d = x.shape[-1]
     if _check(x, gain, "rmsnorm"):
-        return rmsnorm_ref(x, gain)
-    triton, kernel = _kernel()
-    y = torch.empty_like(x)
-    block = triton.next_power_of_2(d) if d <= ROW_BLOCK else CHUNK
+        return rmsnorm_ref(x, gain).to(dtype)
+    y = torch.empty(x.shape, dtype=dtype, device=x.device)
+    lib = _fwd_library()
+    entry = lib.rmsnorm_bf16 if dtype == torch.bfloat16 else lib.rmsnorm_f32
     with torch.cuda.device(x.device):
-        kernel[(x.numel() // d,)](
-            x, gain, y, d, EPS, BLOCK=block, ONE=d <= block,
-            num_warps=min(max(block // 128, 1), 8),
-        )
+        status = entry(x.data_ptr(), gain.data_ptr(), y.data_ptr(), x.numel() // d, d,
+                       torch.cuda.current_stream().cuda_stream)
+    build.check(lib, status, "rmsnorm")
     launches += 1
     return y
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _fwd_library() -> ctypes.CDLL:
+    lib = build.library("rmsnorm")
+    for entry in (lib.rmsnorm_f32, lib.rmsnorm_bf16):
+        entry.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        entry.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
     lib = build.library("rmsnorm_bwd")
     lib.rmsnorm_bwd_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.rmsnorm_bwd_f32.restype = ctypes.c_int
@@ -150,7 +122,7 @@ def _library() -> ctypes.CDLL:
 def cluster() -> int:
     """The blocks of the thread-block cluster the backward kernel runs on
     (builds the kernel)."""
-    return _library().rmsnorm_bwd_cluster()
+    return _bwd_library().rmsnorm_bwd_cluster()
 
 
 def rmsnorm_bwd(
@@ -172,7 +144,7 @@ def rmsnorm_bwd(
     d = x.shape[-1]
     dx = torch.empty_like(x)
     dgain = torch.empty_like(gain)
-    lib = _library()
+    lib = _bwd_library()
     with torch.cuda.device(x.device):
         status = lib.rmsnorm_bwd_f32(
             x.data_ptr(), gain.data_ptr(), dy.data_ptr(), dx.data_ptr(), dgain.data_ptr(),
@@ -203,3 +175,36 @@ def rmsnorm(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
     ``[..., d]``, the forward kernel now and the backward kernel under
     ``backward()`` (the plain versions for CPU tensors)."""
     return RMSNorm.apply(x, gain)
+
+
+class RMSNormToBF16(torch.autograd.Function):
+    """``rmsnorm_fwd`` to bf16, the operand of the product that follows,
+    with the gradient of the chain it replaces: RMSNorm, then (with a
+    ``model`` process group) Megatron's "f", then the cast to bf16.  Its
+    backward widens the bf16 ``dy`` to f32, all-reduces it over ``model``
+    where a group is given, then runs ``rmsnorm_bwd``: that chain's order,
+    so its bits.  (``demo.CopyToModel`` around the bf16 output instead
+    would all-reduce bf16 gradients.)  Saves x and the gain."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, gain: torch.Tensor, model) -> torch.Tensor:
+        ctx.save_for_backward(x, gain)
+        ctx.model = model
+        return rmsnorm_fwd(x, gain, torch.bfloat16)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        x, gain = ctx.saved_tensors
+        dy = dy.to(torch.float32, memory_format=torch.contiguous_format)
+        if ctx.model is not None:
+            dist.all_reduce(dy, group=ctx.model)
+        return (*rmsnorm_bwd(x, gain, dy), None)
+
+
+def rmsnorm_to_bf16(x: torch.Tensor, gain: torch.Tensor, model=None) -> torch.Tensor:
+    """RMSNorm written in bf16, with a gradient: f32 ``[..., d]`` and gain
+    ``[d]`` -> bf16 ``[..., d]``, the bits of ``rmsnorm(x, gain)`` cast to
+    bf16; the forward kernel now and, under ``backward()``, the f32
+    gradient all-reduced over the ``model`` group (when one is given) and
+    the backward kernel (the plain versions for CPU tensors)."""
+    return RMSNormToBF16.apply(x, gain, model)

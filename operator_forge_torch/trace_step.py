@@ -3,9 +3,11 @@
     python -m operator_forge_torch.trace_step
 
 Runs ``train_entry()``'s SGD step and ``entry()``'s forward on the card,
-each call on the same parameters and tokens and ending in
-``torch.cuda.synchronize()``.  For each path it first times ``CALLS``
-calls on the host's clock without the profiler, then times as many again
+then the wide step (one SGD step at ``DemoConfig(vocab=32000,
+seq_len=2048, batch=2)``, whose logits take 262 MB in bf16), each call on
+the same parameters and tokens and ending in ``torch.cuda.synchronize()``.
+For each path it first times ``CALLS`` calls (``WIDE_CALLS`` for the wide
+step) on the host's clock without the profiler, then times as many again
 under ``torch.profiler``, and prints one JSON line: the host's median time
 per call in each of the two runs, the device's busy time per call in the
 profiled run (the union of the intervals of the CUDA kernels the profiler
@@ -25,16 +27,19 @@ import time
 import torch
 from torch.autograd import DeviceType
 
+from . import demo
 from .entry import entry, train_entry
 
 CALLS = 20
+WIDE_CALLS = 5
+WIDE = dict(vocab=32000, seq_len=2048, batch=2)
 TOP = 12
 
 
-def _host_ms(call) -> float:
-    """Median host time of ``CALLS`` calls, each ending in a synchronize."""
+def _host_ms(call, calls: int) -> float:
+    """Median host time of ``calls`` calls, each ending in a synchronize."""
     times = []
-    for _ in range(CALLS):
+    for _ in range(calls):
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
@@ -52,14 +57,14 @@ def _busy_us(spans: list) -> float:
     return busy
 
 
-def profile(call) -> dict:
+def profile(call, calls: int = CALLS) -> dict:
     for _ in range(3):  # warm: Triton's first launches, cuBLAS, the allocator
         call()
     torch.cuda.synchronize()
-    host_ms = _host_ms(call)
+    host_ms = _host_ms(call, calls)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
-        profiled_ms = _host_ms(call)
+        profiled_ms = _host_ms(call, calls)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         raise RuntimeError("the profiler recorded no device time")
@@ -68,17 +73,17 @@ def profile(call) -> dict:
         total = by_name.setdefault(e.name, [0.0, 0])
         total[0] += e.time_range.elapsed_us()
         total[1] += 1
-    busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / CALLS
+    busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / calls
     ranked = sorted(by_name.items(), key=lambda item: -item[1][0])
     return {
-        "calls": CALLS,
+        "calls": calls,
         "host_median_ms": host_ms,
         "profiled_host_median_ms": profiled_ms,
         "device_busy_ms_per_call": busy_ms,
         "device_idle_share": 1.0 - busy_ms / profiled_ms,
-        "kernel_launches_per_call": len(kernels) / CALLS,
+        "kernel_launches_per_call": len(kernels) / calls,
         "top_kernels": [
-            {"name": name[:96], "ms_per_call": us / 1e3 / CALLS, "launches_per_call": n / CALLS}
+            {"name": name[:96], "ms_per_call": us / 1e3 / calls, "launches_per_call": n / calls}
             for name, (us, n) in ranked[:TOP]
         ],
     }
@@ -94,6 +99,12 @@ def main() -> None:
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"train_step": profile(lambda: step(params, tokens))}))
     print(json.dumps({"forward": profile(lambda: forward(params, fwd_tokens))}))
+    config = demo.DemoConfig(**WIDE)
+    wide = demo.init_params(config, torch.Generator().manual_seed(0), "cuda")
+    wide_tokens = torch.randint(0, config.vocab, (config.batch, config.seq_len + 1),
+                                generator=torch.Generator().manual_seed(1)).cuda()
+    print(json.dumps({"wide_step": profile(lambda: demo.train_step(wide, wide_tokens, config),
+                                           WIDE_CALLS)}))
 
 
 if __name__ == "__main__":

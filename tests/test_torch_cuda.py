@@ -87,16 +87,33 @@ def test_attention_path_by_shape(cuda, shape, tiles):
     assert attention.tiles(*shape) == tiles
 
 
-@pytest.mark.parametrize("shape", [(512, 128), (3, 5, 100), (7, 1000), (3, 16385), (256, 20480)])
+def _within_bf16_ulp(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Elementwise within 1 bf16 ulp of ``want``: both round an f32 value
+    once, and the two f32 values lie a few f32 ulps apart."""
+    want = want.float()
+    return bool(((got.float() - want).abs() <= bf16_ulp(want)).all())
+
+
+# DemoConfig()'s [512, 128] and the wide step's [4096, 128] (a warp a row);
+# odd and wider rows (a block a row, staged in shared memory, with and
+# without 16-byte copies), and rows past what shared memory holds
+@pytest.mark.parametrize("shape", [(512, 128), (3, 5, 100), (7, 1000), (3, 16385), (256, 20480),
+                                   (4096, 128), (5, 130), (2, 70000)])
 def test_rmsnorm_kernel_matches_plain(cuda, shape):
-    """rtol 1e-5, atol 1e-6: the row sum is taken in another order."""
+    """f32 within rtol 1e-5, atol 1e-6: the row sum is taken in another
+    order.  bf16 within 1 bf16 ulp of the plain value cast.  One launch a
+    call, the same bits from two."""
     x = _normal(shape, 1, cuda, scale=3.0)
     gain = _normal(shape[-1:], 2, cuda)
     before = rmsnorm.launches
     got = rmsnorm.rmsnorm(x, gain)
     torch.cuda.synchronize()
     assert rmsnorm.launches == before + 1
-    torch.testing.assert_close(got, rmsnorm.rmsnorm_ref(x, gain), rtol=1e-5, atol=1e-6)
+    want = rmsnorm.rmsnorm_ref(x, gain)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    (got,), same = run_twice(lambda: rmsnorm.rmsnorm_fwd(x, gain, torch.bfloat16))
+    assert rmsnorm.launches == before + 3 and same and got.dtype == torch.bfloat16
+    assert _within_bf16_ulp(got, want.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("shape", [(512, 512), (1000,)])
@@ -161,24 +178,36 @@ def test_gelu_bwd_kernel_matches_plain(cuda, shape):
     assert bool(((got.float() - want).abs() <= bf16_ulp(want.abs().clamp_min(2.0**-8))).all())
 
 
+# DemoConfig()'s [512, 256] and rows of 1000 and 2048 (a warp a row in
+# bf16; 1000 in f32); odd rows of 100 (a block a row in bf16); the wide
+# step's 32000 and 16385 (a block a row, staged in shared memory); rows
+# past what shared memory holds in f32 (70000) and in bf16 (120000)
 @pytest.mark.parametrize("rows, vocab", [((8, 64), 256), ((512,), 1000), ((3, 7), 1000),
-                                         ((3,), 16385), ((256,), 32000)])
+                                         ((3,), 16385), ((256,), 32000), ((3, 5), 100),
+                                         ((4,), 2048), ((2,), 70000), ((2,), 120000)])
 def test_cross_entropy_kernels_match_plain(cuda, rows, vocab):
-    """The loss within rtol 1e-5 and dlogits within 1e-7: f32, with
-    ``exp`` and ``log`` of another rounding and sums in another order."""
-    logits = _normal((*rows, vocab), 11, cuda, scale=2.0)
-    targets = torch.randint(0, vocab, rows, generator=torch.Generator().manual_seed(12)).to(cuda)
-    grad = torch.tensor(0.75, device=cuda)
-    before = (ce.launches, ce.bwd_launches)
-    (loss, lse), same = run_twice(lambda: ce.cross_entropy_fwd(logits, targets))
-    (dlogits,), same_bwd = run_twice(lambda: ce.cross_entropy_bwd(logits, targets, lse, grad))
-    assert (ce.launches, ce.bwd_launches) == (before[0] + 2, before[1] + 2)
-    assert same and same_bwd
-    want_loss, want_lse = ce.cross_entropy_ref(logits, targets)
-    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
-    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=0)
-    want = ce.cross_entropy_bwd_ref(logits, targets, want_lse, grad)
-    torch.testing.assert_close(dlogits, want, rtol=0, atol=1e-7)
+    """On f32 logits the loss within rtol 1e-5 and dlogits within 1e-7:
+    ``exp`` and ``log`` of another rounding and sums in another order.  On
+    the same logits in bf16 the loss within rtol 1e-5 of the plain version
+    and bf16 dlogits within 1 bf16 ulp of its.  One launch a call each
+    way, the same bits from two."""
+    for dtype in (torch.float32, torch.bfloat16):
+        logits = _normal((*rows, vocab), 11, cuda, scale=2.0).to(dtype)
+        targets = torch.randint(0, vocab, rows, generator=torch.Generator().manual_seed(12)).to(cuda)
+        grad = torch.tensor(0.75, device=cuda)
+        before = (ce.launches, ce.bwd_launches)
+        (loss, lse), same = run_twice(lambda: ce.cross_entropy_fwd(logits, targets))
+        (dlogits,), same_bwd = run_twice(lambda: ce.cross_entropy_bwd(logits, targets, lse, grad))
+        assert (ce.launches, ce.bwd_launches) == (before[0] + 2, before[1] + 2)
+        assert same and same_bwd and dlogits.dtype == dtype
+        want_loss, want_lse = ce.cross_entropy_ref(logits, targets)
+        torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=0)
+        want = ce.cross_entropy_bwd_ref(logits, targets, want_lse, grad)
+        if dtype == torch.float32:
+            torch.testing.assert_close(dlogits, want, rtol=0, atol=1e-7)
+        else:
+            assert _within_bf16_ulp(dlogits, want)
 
 
 def test_autograd_functions_match_autograd_of_plain(cuda):
@@ -215,6 +244,35 @@ def test_autograd_functions_match_autograd_of_plain(cuda):
     ce.cross_entropy(gl, targets).backward()
     ce.cross_entropy_ref(wl, targets)[0].backward()
     torch.testing.assert_close(gl.grad, wl.grad, rtol=0, atol=1e-7)
+
+
+def test_bf16_functions_match_autograd_of_plain(cuda):
+    """``rmsnorm_to_bf16`` against autograd of the plain RMSNorm cast to
+    bf16, and cross entropy on bf16 logits against autograd of the plain
+    version on the widened logits (its gradient cast back): the outputs
+    within 1 bf16 ulp and the loss within rtol 1e-5, the gradients within
+    the f32 tolerances above (dx, dgain) and 1 bf16 ulp (dlogits)."""
+    x, gain = _normal((7, 128), 25, cuda, scale=3.0), _normal((128,), 26, cuda)
+    dy = _normal((7, 128), 27, cuda).bfloat16()
+    got = [x.clone().requires_grad_(), gain.clone().requires_grad_()]
+    want = [x.clone().requires_grad_(), gain.clone().requires_grad_()]
+    y = rmsnorm.rmsnorm_to_bf16(*got)
+    y_want = rmsnorm.rmsnorm_ref(*want).to(torch.bfloat16)
+    assert y.dtype == torch.bfloat16 and _within_bf16_ulp(y, y_want)
+    y.backward(dy)
+    y_want.backward(dy)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.grad, w.grad, rtol=1e-5, atol=1e-6 * float(w.grad.abs().max()))
+
+    logits = _normal((4, 9, 256), 28, cuda).bfloat16()
+    targets = torch.randint(0, 256, (4, 9), generator=torch.Generator().manual_seed(29)).to(cuda)
+    gl, wl = logits.clone().requires_grad_(), logits.clone().requires_grad_()
+    loss = ce.cross_entropy(gl, targets)
+    want_loss = ce.cross_entropy_ref(wl.float(), targets)[0]
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
+    loss.backward()
+    want_loss.backward()
+    assert gl.grad.dtype == torch.bfloat16 and _within_bf16_ulp(gl.grad, wl.grad)
 
 
 def test_train_step_on_card_matches_cpu(cuda):
@@ -395,6 +453,56 @@ def test_rmsnorm_bwd_is_one_kernel(cuda):
     assert len(kernels) == 1, kernels
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows, vocab", [(512, 256), (64, 32000)])
+def test_cross_entropy_is_one_kernel_each_way(cuda, rows, vocab, dtype):
+    """One call of the forward runs one CUDA kernel, the mean included,
+    and one of the backward one kernel."""
+    logits = _normal((rows, vocab), 30, cuda, scale=2.0).to(dtype)
+    targets = torch.randint(0, vocab, (rows,), generator=torch.Generator().manual_seed(31)).to(cuda)
+    kernels = _cuda_kernels(lambda: ce.cross_entropy_fwd(logits, targets))
+    assert len(kernels) == 1, kernels
+    lse = ce.cross_entropy_fwd(logits, targets)[1]
+    grad = torch.ones((), device=cuda)
+    kernels = _cuda_kernels(lambda: ce.cross_entropy_bwd(logits, targets, lse, grad))
+    assert len(kernels) == 1, kernels
+
+
+def test_rmsnorm_to_bf16_is_one_kernel_with_no_cast_after_it(cuda):
+    """``rmsnorm_to_bf16`` runs one CUDA kernel, and the product that
+    reads its output runs no elementwise kernel (a cast) before cuBLAS's."""
+    x, gain = _normal((512, 128), 32, cuda), _normal((128,), 33, cuda)
+    w = _normal((128, 384), 34, cuda).bfloat16()
+    kernels = _cuda_kernels(lambda: rmsnorm.rmsnorm_to_bf16(x, gain))
+    assert len(kernels) == 1, kernels
+    kernels = _cuda_kernels(lambda: demo._bf16_matmul(rmsnorm.rmsnorm_to_bf16(x, gain), w))
+    assert sum("rmsnorm" in k for k in kernels) == 1, kernels
+    assert not any("elementwise" in k for k in kernels), kernels
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_entropy_replays_from_a_cuda_graph(cuda, dtype):
+    """A CUDA graph of the forward, replayed twice, gives the eager loss's
+    bits each time: the last block sets its ticket counter back to 0."""
+    logits = _normal((512, 256), 35, cuda, scale=2.0).to(dtype)
+    targets = torch.randint(0, 256, (512,), generator=torch.Generator().manual_seed(36)).to(cuda)
+    eager = ce.cross_entropy_fwd(logits, targets)[0].clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ce.cross_entropy_fwd(logits, targets)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        loss, _ = ce.cross_entropy_fwd(logits, targets)
+    for _ in range(2):
+        loss.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(loss, eager)
+    assert torch.equal(ce.cross_entropy_fwd(logits, targets)[0], eager)
+
+
 @pytest.mark.parametrize("case", ["earlier", "later"])
 def test_ring_step_is_one_kernel(cuda, case):
     """One call of ``ring_step`` runs one CUDA kernel, also for a later
@@ -420,11 +528,13 @@ def _slices_close(got, want_of, rows: int, check) -> None:
         check(got[part], want_of(part))
 
 
-@pytest.mark.parametrize("name", ["gelu", "gelu_bwd", "rmsnorm", "rmsnorm_bwd", "cross_entropy"])
+@pytest.mark.parametrize("name", ["gelu", "gelu_bwd", "rmsnorm", "rmsnorm_bwd", "cross_entropy",
+                                  "rmsnorm_bf16", "cross_entropy_bf16"])
 def test_kernel_past_2_31_values(cuda, name):
     """A tensor of more than 2**31 values, whose offsets need 64 bits: the
     kernel's rows (or values) at both ends within the tolerances above of
-    the plain version on the same slices."""
+    the plain version on the same slices (bf16 outputs within 1 bf16 ulp
+    of the plain value cast)."""
     g = torch.Generator(device="cuda").manual_seed(60)
     if name in ("gelu", "gelu_bwd"):
         x = (3 * torch.randn(2**31 + 1000, generator=g, device="cuda")).bfloat16()
@@ -444,6 +554,12 @@ def test_kernel_past_2_31_values(cuda, name):
         gain = torch.randn(16384, generator=g, device="cuda")
         _slices_close(rmsnorm.rmsnorm(x, gain), lambda part: rmsnorm.rmsnorm_ref(x[part], gain), 64,
                       lambda a, b: torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6))
+    elif name == "rmsnorm_bf16":
+        x = torch.randn(2**31 // 128 + 1, 128, generator=g, device="cuda")
+        gain = torch.randn(128, generator=g, device="cuda")
+        got = rmsnorm.rmsnorm_to_bf16(x, gain)
+        _slices_close(got, lambda part: rmsnorm.rmsnorm_ref(x[part], gain).to(torch.bfloat16), 4096,
+                      lambda a, b: _within_bf16_ulp(a, b) or pytest.fail("beyond 1 bf16 ulp"))
     elif name == "rmsnorm_bwd":
         x = 3 * torch.randn(2**31 // 16384 + 1, 16384, generator=g, device="cuda")
         dy = torch.randn(x.shape, generator=g, device="cuda")
@@ -459,6 +575,8 @@ def test_kernel_past_2_31_values(cuda, name):
         torch.testing.assert_close(dgain, want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
     else:
         logits = 2 * torch.randn(2**31 // 32000 + 1, 32000, generator=g, device="cuda")
+        if name == "cross_entropy_bf16":
+            logits = logits.bfloat16()
         targets = torch.randint(0, 32000, logits.shape[:1], generator=g, device="cuda")
         grad = torch.tensor(1.0, device="cuda")
         loss, lse = ce.cross_entropy_fwd(logits, targets)
@@ -471,10 +589,14 @@ def test_kernel_past_2_31_values(cuda, name):
                                    rtol=1e-5, atol=0)
         n = torch.tensor(float(len(targets)), device="cuda")
         for part in (slice(0, 64), slice(-64, None)):
-            rows = logits[part]
+            rows = logits[part].float()
             want = (torch.exp(rows - lse[part, None])
                     - torch.nn.functional.one_hot(targets[part], 32000).float()) * (grad / n)
-            torch.testing.assert_close(dlogits[part], want, rtol=0, atol=1e-7)
+            if name == "cross_entropy":
+                torch.testing.assert_close(dlogits[part], want, rtol=0, atol=1e-7)
+            else:
+                assert dlogits.dtype == torch.bfloat16
+                assert _within_bf16_ulp(dlogits[part], want.to(torch.bfloat16))
 
 
 def test_dryrun_multichip_on_one_card(cuda):

@@ -115,6 +115,41 @@ def test_rmsnorm_wrapper_takes_plain_version_on_cpu():
         rmsnorm.rmsnorm(x, gain[:32])
 
 
+def test_rmsnorm_to_bf16_matches_jax_and_the_unfused_chain():
+    """The plain path of ``rmsnorm_to_bf16`` within 1 bf16 ulp of
+    ``_rmsnorm(x, g).astype(bf16)`` (both round an f32 value once; JAX's
+    f32 sum runs in another order), bit for bit ``rmsnorm(x, g)`` cast to
+    bf16, and its gradient the bits of that unfused chain's; no launch."""
+    x = _sigma3((512, 128), seed=7)
+    gain = np.random.default_rng(8).standard_normal(128).astype(np.float32)
+    want = jdemo._rmsnorm(jnp.asarray(x), jnp.asarray(gain)).astype(jnp.bfloat16)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    fused = [torch.from_numpy(x).requires_grad_(), torch.from_numpy(gain).requires_grad_()]
+    chain = [t.detach().clone().requires_grad_() for t in fused]
+    before = (rmsnorm.launches, rmsnorm.bwd_launches)
+    got = rmsnorm.rmsnorm_to_bf16(*fused)
+    unfused = rmsnorm.rmsnorm(*chain).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, unfused)
+    assert bool(((got.float() - want).abs() <= bf16_ulp(want)).all())
+    dy = torch.from_numpy(_sigma3((512, 128), seed=9)).bfloat16()
+    got.backward(dy)
+    unfused.backward(dy)
+    assert all(torch.equal(a.grad, b.grad) for a, b in zip(fused, chain))
+    assert (rmsnorm.launches, rmsnorm.bwd_launches) == before
+
+
+def test_rmsnorm_fwd_writes_f32_or_bf16():
+    """On the CPU the bf16 output is the plain f32 value cast; other
+    output types are refused."""
+    x = torch.from_numpy(_sigma3((4, 16, 64), seed=10))
+    gain = torch.linspace(0.5, 1.5, 64)
+    got = rmsnorm.rmsnorm_fwd(x, gain, torch.bfloat16)
+    assert torch.equal(got, rmsnorm.rmsnorm_ref(x, gain).to(torch.bfloat16))
+    assert torch.equal(rmsnorm.rmsnorm_fwd(x, gain), rmsnorm.rmsnorm_ref(x, gain))
+    with pytest.raises(ValueError):
+        rmsnorm.rmsnorm_fwd(x, gain, torch.float16)
+
+
 def test_gelu_matches_jax_in_f32():
     """The tanh form agrees to about 1e-6 at sigma 3; the erf form, torch's
     default, differs by about 5e-4 and would fail this."""

@@ -245,6 +245,42 @@ def test_cross_entropy_bwd_ref_matches_autograd():
     torch.testing.assert_close(got, live.grad, rtol=0, atol=1e-9)
 
 
+@pytest.mark.parametrize("shape, vocab", [((8, 64), 256), ((3, 7), 1000)])
+def test_cross_entropy_on_bf16_logits_is_the_f32_path_cast(shape, vocab):
+    """On bf16 logits the loss and lse are the bits of the f32 path on the
+    widened logits, and dlogits the bits of its f32 dlogits cast to bf16,
+    by the wrappers and through autograd (against the unfused ``.float()``
+    before the loss).  Against ``jax.value_and_grad`` of the reference's
+    tail, widening included, on the same bf16 logits: the loss within 5e-6
+    and dlogits within 1 bf16 ulp (both round an f32 value once)."""
+    wide, targets = _logits_and_targets(shape, vocab, 22)
+    logits = wide.bfloat16()
+    wide = logits.float()
+    loss, lse = ce.cross_entropy_fwd(logits, targets)
+    want_loss, want_lse = ce.cross_entropy_fwd(wide, targets)
+    assert torch.equal(loss, want_loss) and torch.equal(lse, want_lse)
+    g = torch.tensor(0.75)
+    dx = ce.cross_entropy_bwd(logits, targets, lse, g)
+    assert dx.dtype == torch.bfloat16
+    assert torch.equal(dx, ce.cross_entropy_bwd(wide, targets, lse, g).to(torch.bfloat16))
+
+    fused, chain = logits.clone().requires_grad_(), logits.clone().requires_grad_()
+    ce.cross_entropy(fused, targets).backward(g)
+    ce.cross_entropy(chain.float(), targets).backward(g)
+    assert fused.grad.dtype == torch.bfloat16 and torch.equal(fused.grad, chain.grad)
+
+    jlogits = jnp.asarray(logits.float().numpy()).astype(jnp.bfloat16)
+    want, vjp = jax.vjp(
+        lambda l: _jax_cross_entropy(l.astype(jnp.float32), jnp.asarray(targets.numpy())), jlogits
+    )
+    (want_d,) = vjp(jnp.float32(1.0))
+    assert want_d.dtype == jnp.bfloat16
+    assert abs(float(loss) - float(want)) <= 5e-6
+    got_d = ce.cross_entropy_bwd(logits, targets, lse, torch.ones(())).float()
+    want_d = torch.from_numpy(np.array(want_d.astype(jnp.float32)))
+    assert bool(((got_d - want_d).abs() <= bf16_ulp(want_d)).all())
+
+
 class TestWrappersOnCpu:
     """Each new wrapper takes its plain version for CPU tensors (no launch
     counted) and rejects what its kernel cannot take."""
@@ -335,10 +371,25 @@ class TestWrappersOnCpu:
         assert torch.equal(live.grad, want_d)
         assert (ce.launches, ce.bwd_launches) == before
 
+    def test_cross_entropy_bf16(self):
+        """bf16 logits take the plain version too; ``dlogits`` come back
+        in bf16."""
+        logits, targets = _logits_and_targets((4, 16), 256, 37)
+        logits = logits.bfloat16()
+        before = (ce.launches, ce.bwd_launches)
+        loss, lse = ce.cross_entropy_fwd(logits, targets)
+        want_loss, want_lse = ce.cross_entropy_ref(logits, targets)
+        assert torch.equal(loss, want_loss) and torch.equal(lse, want_lse)
+        g = torch.tensor(1.0)
+        got = ce.cross_entropy_bwd(logits, targets, lse, g)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, ce.cross_entropy_bwd_ref(logits, targets, lse, g))
+        assert (ce.launches, ce.bwd_launches) == before
+
     @pytest.mark.parametrize(
         "logits, targets",
         [
-            (torch.zeros(4, 8, dtype=torch.bfloat16), torch.zeros(4, dtype=torch.long)),
+            (torch.zeros(4, 8, dtype=torch.float16), torch.zeros(4, dtype=torch.long)),  # f16
             (torch.zeros(4, 8), torch.zeros(4)),                       # float targets
             (torch.zeros(4, 8), torch.zeros(5, dtype=torch.long)),     # shape
             (torch.zeros(2, 0), torch.zeros(2, dtype=torch.long)),     # no vocab

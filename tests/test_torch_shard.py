@@ -105,6 +105,19 @@ def test_megatron_functions_on_2_ranks(sharded_run):
         assert np.array_equal(y, 3 * base) and np.array_equal(grad, [3, 3, 3])
 
 
+def test_rmsnorm_to_bf16_on_2_ranks_gives_the_chains_bits(sharded_run):
+    """On each rank of the model group, ``rmsnorm_to_bf16`` with the group
+    gives the bits of RMSNorm, ``CopyToModel`` and the cast, gradients
+    included: its backward widens the bf16 gradient and all-reduces it in
+    f32, as the chain does.  Without the group the gradient differs (each
+    rank feeds another output gradient), so the all-reduce ran."""
+    for r in range(2):
+        out = sharded_run["got"][r]["megatron"]["rmsnorm_to_bf16"]
+        assert all(np.array_equal(a, b) for a, b in zip(out["fused"], out["chain"]))
+        assert np.array_equal(out["fused"][0], out["alone"][0])
+        assert not np.array_equal(out["fused"][1], out["alone"][1])
+
+
 def test_wqkv_permutation_round_trips():
     config = demo.DemoConfig(**TEST_CONFIG)
     params = demo.init_params(config, torch.Generator().manual_seed(0), "cpu")

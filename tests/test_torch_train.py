@@ -23,7 +23,8 @@ import torch
 from operator_forge.tpu import demo as jdemo
 from operator_forge_torch import demo, trace_step
 from operator_forge_torch.entry import train_entry
-from operator_forge_torch.kernels import bf16_ulp, step_tolerance
+from operator_forge_torch.kernels import attention, bf16_ulp, gelu, rmsnorm, step_tolerance
+from operator_forge_torch.kernels import cross_entropy as ce
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = {
@@ -124,6 +125,67 @@ def test_one_step_matches_jax(reference_step):
         err = (n - torch.tensor(w)).abs()
         tol = step_tolerance(p, torch.tensor(g), lr)
         assert bool((err <= tol).all()), f"leaf {i}: max |err| {float(err.max()):.3e}"
+
+
+def _unfused_loss(params, tokens, config):
+    """The model composed from the plain pieces with every cast a step of
+    its own, as before RMSNorm and cross entropy took them in: the f32
+    RMSNorm cast to bf16 before each product, the bf16 logits widened
+    before the loss.  ``(f32 logits, loss)``."""
+    bf16 = torch.bfloat16
+    x = params["embed"][tokens[:, :-1]]
+    for layer in params["layers"]:
+        qkv = rmsnorm.rmsnorm(x, layer["ln1"]).to(bf16) @ layer["wqkv"].to(bf16)
+        out = attention.causal_attention(qkv, config.n_heads)
+        x = x + (out @ layer["wo"].to(bf16)).float()
+        h = gelu.gelu_tanh(rmsnorm.rmsnorm(x, layer["ln2"]).to(bf16) @ layer["w1"].to(bf16))
+        x = x + (h @ layer["w2"].to(bf16)).float()
+    logits = (x.to(bf16) @ params["unembed"].to(bf16)).float()
+    return logits, ce.cross_entropy(logits, tokens[:, 1:].contiguous())
+
+
+@pytest.fixture(scope="module", params=sorted(CONFIGS))
+def unfused_step(request):
+    """The port's forward, loss, gradients and step, and the unfused
+    composition's, on the same parameters and tokens.  The embedding's
+    gradient sums duplicate tokens in parallel on the CPU, in an order that
+    changes from run to run; deterministic algorithms fix that order."""
+    config = demo.DemoConfig(**CONFIGS[request.param])
+    params = demo.init_params(config, torch.Generator().manual_seed(0), "cpu")
+    tokens = _tokens(config, config.batch)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        got = dict(logits=demo.forward(params, tokens[:, :-1], config),
+                   step=demo.train_step(params, tokens, config))
+        got["loss"], got["grads"] = demo.value_and_grad(params, tokens, config)
+        live = demo.tree_map(lambda p: p.detach().requires_grad_(), params)
+        logits, loss = _unfused_loss(live, tokens, config)
+        grads = iter(torch.autograd.grad(loss, demo.tree_leaves(live)))
+        grads = demo.tree_map(lambda _: next(grads), live)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    lr = config.learning_rate
+    want = dict(logits=logits.detach(), loss=loss.detach(), grads=grads,
+                step=(demo.tree_map(lambda p, g: p - lr * g, params, grads), loss.detach()))
+    return got, want
+
+
+def test_forward_is_the_unfused_composition(unfused_step):
+    got, want = unfused_step
+    assert torch.equal(got["logits"], want["logits"])
+
+
+def test_value_and_grad_is_the_unfused_composition(unfused_step):
+    got, want = unfused_step
+    assert torch.equal(got["loss"], want["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(*map(demo.tree_leaves, (got["grads"], want["grads"]))))
+
+
+def test_train_step_is_the_unfused_composition(unfused_step):
+    (new, loss), (want_new, want_loss) = unfused_step[0]["step"], unfused_step[1]["step"]
+    assert torch.equal(loss, want_loss)
+    assert all(torch.equal(a, b) for a, b in zip(*map(demo.tree_leaves, (new, want_new))))
 
 
 def test_train_entry_on_cpu_runs():

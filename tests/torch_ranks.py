@@ -10,6 +10,7 @@ import torch.distributed.nn.functional as dist_fn
 from torch.distributed.device_mesh import init_device_mesh
 
 from operator_forge_torch import demo
+from operator_forge_torch.kernels import rmsnorm
 
 
 def _numpy(tree: dict) -> dict:
@@ -61,6 +62,29 @@ def megatron(group) -> dict:
         weight = torch.arange(float(y.numel())) if name == "gather" else torch.tensor(r + 1.0)
         (y * weight).sum().backward()
         out[name] = (y.detach().numpy(), x.grad.numpy())
+    out["rmsnorm_to_bf16"] = _rmsnorm_to_bf16(group)
+    return out
+
+
+def _rmsnorm_to_bf16(group) -> dict:
+    """``rmsnorm_to_bf16`` with the model group, the chain it replaces
+    (f32 RMSNorm, ``CopyToModel``, the cast to bf16) and the function
+    without a group, on this rank's x and bf16 output gradient: each one's
+    output, dx and dgain as f32 numpy."""
+    r = dist.get_rank(group)
+    g = torch.Generator().manual_seed(5)
+    x, gain = torch.randn(4, 16, generator=g) * (r + 1), torch.randn(16, generator=g)
+    dy = (torch.randn(4, 16, generator=g) * (r + 1)).bfloat16()
+    out = {}
+    for name, fn in (
+        ("fused", lambda a, b: rmsnorm.rmsnorm_to_bf16(a, b, group)),
+        ("chain", lambda a, b: demo.CopyToModel.apply(rmsnorm.rmsnorm(a, b), group).to(torch.bfloat16)),
+        ("alone", rmsnorm.rmsnorm_to_bf16),
+    ):
+        live = [x.clone().requires_grad_(), gain.clone().requires_grad_()]
+        y = fn(*live)
+        y.backward(dy)
+        out[name] = [t.detach().float().numpy() for t in (y, *(t.grad for t in live))]
     return out
 
 
