@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port of the demo LM on one NVIDIA GPU and check it.
 
-Run from the root of a checkout, on a machine with one Hopper card, nvcc
-and triton:
+Run from the root of a checkout, on a machine with one Hopper card and
+nvcc:
 
     python3 chip_smoke.py
 
@@ -10,19 +10,21 @@ Phases, each of which exits non-zero on a failed check:
       f32 accumulation (no TF32, no reduced-precision bf16 reductions), as
       the reference accumulates;
   (b) build every kernel from the checkout's sources (one ``nvcc`` a CUDA
-      source, all at once; the Triton kernels at their first launches),
-      print the seconds;
+      source, all at once), print the seconds;
   (c) hold each kernel against its plain version at the main path's shapes
       (the forward's, the train step's, the ring's block steps: every mask
-      case at three shapes for the ring step; RMSNorm's forward to bf16
-      and cross entropy on bf16 logits, as the model launches them, also
-      at the wide step's shapes, rows ``rmsnorm_wide`` and
-      ``cross_entropy_wide``), require two launches on the
+      case at three shapes for the ring step; RMSNorm's forward to bf16,
+      cross entropy on bf16 logits and the MLP's two fused products, as
+      the model launches them, also at the wide step's shapes, rows
+      ``rmsnorm_wide``, ``cross_entropy_wide``, ``matmul_gelu_wide`` and
+      ``matmul_gelu_bwd_wide``), require two launches on the
       same inputs to agree bit for bit, and time the kernel eagerly and
       from a CUDA graph, the plain version, and one PyTorch call that
       computes the same function (a yardstick only: the port never calls
       it; for a backward, PyTorch's backward op alone on its forward's
-      saved outputs), also from a CUDA graph; print one JSON line per
+      saved outputs), also from a CUDA graph; for the MLP's products also
+      the parent's route (the cuBLAS product alone, and with PyTorch's
+      GELU after it), from a CUDA graph; print one JSON line per
       kernel, then the kernels ranked by device time over their PyTorch
       call's, the RMSNorm backward's cluster size, and the ring step's
       time on longer blocks beside SDPA's.  The ring's backward step is
@@ -41,7 +43,8 @@ Phases, each of which exits non-zero on a failed check:
   (e') the wide step: ``loss_fn``, ``value_and_grad`` and one
       ``train_step`` at ``DemoConfig(vocab=32000, seq_len=2048, batch=2)``
       (past cross entropy's and attention's former caps), with exact launch
-      counts, against the same step on the CPU;
+      counts and the step's peak device memory, against the same step on
+      the CPU;
   (g) ring attention: the 4-rank ring's schedule replayed in one process
       (at step j rank r holds block (r - j) % 4, every block step through
       the kernel), and the real ``ring_attention`` on the group of one,
@@ -80,8 +83,8 @@ from torch.distributed.device_mesh import init_device_mesh
 from operator_forge_torch import demo
 from operator_forge_torch.entry import dryrun_multichip, entry, train_entry
 from operator_forge_torch.kernels import (
-    attention, bf16_ulp, build, carry_close, gelu, grads_close, rmsnorm, run_twice,
-    step_tolerance, within_ulps,
+    attention, bf16_ulp, build, carry_close, grads_close, mlp, rmsnorm, run_twice,
+    step_tolerance, within_floored_ulps, within_ulps,
 )
 from operator_forge_torch.kernels import cross_entropy as ce
 from operator_forge_torch.kernels import ring_attention as ra
@@ -103,10 +106,10 @@ RING_TIMED = ((1, 4, 256, 32), (1, 4, 1024, 32))
 COUNTERS = {
     "causal_attention": (attention, "launches"),
     "rmsnorm": (rmsnorm, "launches"),
-    "gelu_tanh": (gelu, "launches"),
+    "matmul_gelu": (mlp, "launches"),
     "causal_attention_bwd": (attention, "bwd_launches"),
     "rmsnorm_bwd": (rmsnorm, "bwd_launches"),
-    "gelu_tanh_bwd": (gelu, "bwd_launches"),
+    "matmul_gelu_bwd": (mlp, "bwd_launches"),
     "cross_entropy": (ce, "launches"),
     "cross_entropy_bwd": (ce, "bwd_launches"),
     "ring_attention_step": (ra, "launches"),
@@ -167,9 +170,12 @@ def read_counts() -> dict:
     return {name: getattr(module, counter) for name, (module, counter) in COUNTERS.items()}
 
 
-def bound(bytes_moved: int, flops: int, flop_per_s: float) -> tuple[float, str]:
+def bound(bytes_moved: int, flops: int, flop_per_s: float, *more: tuple) -> tuple[float, str]:
+    """The least time, in ms, of moving ``bytes_moved`` and of ``flops``
+    operations at ``flop_per_s`` (and each further ``(flops, rate)`` pair,
+    operations of another type, after them), whichever is longer."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flop_per_s * 1e3
+    t_ops = sum(f / rate for f, rate in ((flops, flop_per_s), *more)) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -188,17 +194,10 @@ def phase_card() -> str:
     return card
 
 
-def phase_build(inputs: dict) -> None:
+def phase_build() -> None:
     t0 = time.perf_counter()
     build.build_all()
-    cuda_s = time.perf_counter() - t0
-    # a Triton kernel compiles at its first launch
-    t0 = time.perf_counter()
-    gelu.gelu_tanh_fwd(*inputs["gelu"])
-    gelu.gelu_tanh_bwd(*inputs["gelu_bwd"])
-    torch.cuda.synchronize()
-    triton_s = time.perf_counter() - t0
-    print(f"build: nvcc {cuda_s:.2f} s, triton {triton_s:.2f} s")
+    print(f"build: nvcc {time.perf_counter() - t0:.2f} s, {len(build.sources())} sources")
 
 
 def main_path_inputs(config: demo.DemoConfig) -> dict:
@@ -212,7 +211,10 @@ def main_path_inputs(config: demo.DemoConfig) -> dict:
 
     x = normal(b, s, d)
     gain = 1.0 + 0.1 * normal(d)
-    h = normal(b, s, config.d_ff, scale=3.0).bfloat16()
+    # the MLP's operands: x as RMSNorm writes it, w1 scaled so that h_pre
+    # has a scale of 3 (the GELU's whole range), h_pre of that scale
+    w1 = normal(d, config.d_ff, scale=3.0 / math.sqrt(d)).bfloat16()
+    w2 = normal(config.d_ff, d, scale=1.0 / math.sqrt(config.d_ff)).bfloat16()
     qkv = normal(b, s, 3 * d).bfloat16()
     targets = torch.randint(0, config.vocab, (b, s), generator=g).cuda()
     wide = demo.DemoConfig(**WIDE)
@@ -220,14 +222,17 @@ def main_path_inputs(config: demo.DemoConfig) -> dict:
     return {
         "attention": (qkv, config.n_heads),
         "rmsnorm": (x, gain),
-        "gelu": (h,),
+        "mlp": (normal(b, s, d).bfloat16(), w1),
         "attention_bwd": (qkv, normal(b, s, d).bfloat16(), config.n_heads),
         "rmsnorm_bwd": (x, gain, normal(b, s, d)),
-        "gelu_bwd": (h, normal(b, s, config.d_ff).bfloat16()),
+        "mlp_bwd": (normal(b, s, d).bfloat16(), w2, normal(b, s, config.d_ff, scale=3.0).bfloat16()),
         "cross_entropy": (normal(b, s, config.vocab, scale=2.0).bfloat16(), targets,
                           torch.ones(()).cuda()),
         # the wide step's shapes: its RMSNorm rows and its logits
         "rmsnorm_wide": (normal(rows, d), 1.0 + 0.1 * normal(d)),
+        "mlp_wide": (normal(rows, d).bfloat16(), w1),
+        "mlp_bwd_wide": (normal(rows, d).bfloat16(), w2,
+                         normal(rows, config.d_ff, scale=3.0).bfloat16()),
         "cross_entropy_wide": (normal(rows, wide.vocab, scale=2.0).bfloat16(),
                                torch.randint(0, wide.vocab, (rows,), generator=g).cuda(),
                                torch.ones(()).cuda()),
@@ -335,6 +340,72 @@ def cross_entropy_row(logits, targets, grad, name: str, reps: int = 100) -> dict
     )
 
 
+def mlp_row(x, w1, name: str, reps: int = 100) -> dict:
+    """The MLP's first product with the GELU in its epilogue, as the train
+    step launches it (h_pre kept): h_pre within 1 bf16 ulp of the plain
+    product's, each value floored at 2**-8 of the max (the f32 sum runs in
+    another order); h within ``mlp.gelu_close`` of the plain GELU of that
+    h_pre; and the served call (no h_pre) with h's bits.  Timed beside
+    the plain version, the yardstick (``torch._addmm_activation`` on a zero
+    bias: one cuBLASLt call with a tanh-GELU epilogue) and the parent's
+    route: the cuBLAS product alone and followed by ``F.gelu`` (tanh)."""
+    h, h_pre = mlp.matmul_gelu(x, w1)
+    served, _ = mlp.matmul_gelu(x, w1, keep_pre=False)
+    want_h, want_pre = mlp.matmul_gelu_ref(x, w1)
+    k, n = w1.shape
+    m = x.numel() // k
+    x2, zero = x.view(m, k), torch.zeros(n, dtype=torch.bfloat16, device=x.device)
+    return dict(
+        name=name, shape=[m, k, n], route="cuda", source="operator_forge_torch/csrc/mlp.cu",
+        replaces="operator_forge/tpu/demo.py:97", reps=reps,
+        fn=lambda: mlp.matmul_gelu(x, w1),
+        plain=lambda: mlp.matmul_gelu_ref(x, w1),
+        library=lambda: torch._addmm_activation(zero, x2, w1, use_gelu=True),
+        extra={"served": lambda: mlp.matmul_gelu(x, w1, keep_pre=False),
+               "product": lambda: x @ w1,
+               "route": lambda: F.gelu(x @ w1, approximate="tanh")},
+        err=torch.cat([(h_pre.float() - want_pre.float()).flatten(),
+                       (h.float() - want_h.float()).flatten()]),
+        tolerance="h_pre 1 bf16 ulp of each value floored at 2**-8 of max|h_pre|; "
+                  "h 1 bf16 ulp of max(|y|, 2**-8) of the plain GELU of h_pre",
+        ok=within_floored_ulps(h_pre, want_pre, 1) and mlp.gelu_close(h, h_pre)
+        and torch.equal(served, h),
+        # read x and w1, write h and h_pre; the product's 2 M N K bf16
+        # operations, then some 10 f32 operations an output for the GELU
+        bound=bound((x.numel() + w1.numel() + 2 * m * n) * 2, 2 * m * n * k, BF16_FLOP_PER_S,
+                    (10 * m * n, F32_FLOP_PER_S)),
+    )
+
+
+def mlp_bwd_row(dy, w2, h_pre, name: str, reps: int = 100) -> dict:
+    """The backward's product dy @ w2ᵀ with the GELU's slope in its
+    epilogue: dh_pre within 2 bf16 ulps of the plain version's, each value
+    floored at 2**-8 of the max (the product's 1-ulp difference, scaled by
+    a slope of up to 1.13 before the second rounding).  Timed beside
+    the plain version, the yardstick (``dy @ w2.t()`` then
+    ``aten.gelu_backward``, tanh: two calls, which are also the parent's
+    route) and the cuBLAS product alone."""
+    got = mlp.matmul_gelu_bwd(dy, w2, h_pre)
+    want = mlp.matmul_gelu_bwd_ref(dy, w2, h_pre)
+    n, d = w2.shape
+    m = dy.numel() // d
+    return dict(
+        name=name, shape=[m, d, n], route="cuda", source="operator_forge_torch/csrc/mlp.cu",
+        replaces="operator_forge/tpu/demo.py:98", reps=reps,
+        fn=lambda: mlp.matmul_gelu_bwd(dy, w2, h_pre),
+        plain=lambda: mlp.matmul_gelu_bwd_ref(dy, w2, h_pre),
+        library=lambda: torch.ops.aten.gelu_backward(dy @ w2.t(), h_pre, approximate="tanh"),
+        extra={"product": lambda: dy @ w2.t()},
+        err=got.float() - want.float(),
+        tolerance="dh_pre 2 bf16 ulps of each value floored at 2**-8 of max|dh_pre|",
+        ok=within_floored_ulps(got, want, 2),
+        # read dy, w2 and h_pre, write dh_pre; the product's 2 M N D bf16
+        # operations, then some 20 f32 operations an output for the slope
+        bound=bound((dy.numel() + w2.numel() + 2 * m * n) * 2, 2 * m * n * d, BF16_FLOP_PER_S,
+                    (20 * m * n, F32_FLOP_PER_S)),
+    )
+
+
 def backward_rows(inputs: dict) -> list[dict]:
     """The train step's kernels: the three backwards and cross entropy."""
     rows = []
@@ -395,22 +466,8 @@ def backward_rows(inputs: dict) -> list[dict]:
                     F32_FLOP_PER_S),
     ))
 
-    # GELU backward: within 1 bf16 ulp of max(|dx|, 2**-8)
-    h, dh = inputs["gelu_bwd"]
-    got = gelu.gelu_tanh_bwd(h, dh).float()
-    want = gelu.gelu_tanh_bwd_ref(h, dh).float()
-    rows.append(dict(
-        name="gelu_tanh_bwd", route="triton",
-        source="operator_forge_torch/kernels/gelu.py",
-        replaces="operator_forge/tpu/demo.py:98",
-        fn=lambda: gelu.gelu_tanh_bwd(h, dh),
-        plain=lambda: gelu.gelu_tanh_bwd_ref(h, dh),
-        library=lambda: torch.ops.aten.gelu_backward(dh, h, approximate="tanh"),
-        err=got - want, tolerance="1 bf16 ulp of max(|dx|, 2**-8)",
-        ok=bool(((got - want).abs() <= bf16_ulp(want.abs().clamp_min(2.0**-8))).all()),
-        # read x and dy, write dx; some 20 f32 operations an element
-        bound=bound(3 * h.numel() * 2, 20 * h.numel(), F32_FLOP_PER_S),
-    ))
+    rows.append(mlp_bwd_row(*inputs["mlp_bwd"], "matmul_gelu_bwd"))
+    rows.append(mlp_bwd_row(*inputs["mlp_bwd_wide"], "matmul_gelu_bwd_wide"))
 
     rows.append(cross_entropy_row(*inputs["cross_entropy"], "cross_entropy"))
     rows.append(cross_entropy_row(*inputs["cross_entropy_wide"], "cross_entropy_wide", reps=10))
@@ -601,7 +658,10 @@ def domain_checks() -> None:
     widths the reference computes: cross entropy over Llama 2's 32000
     tokens and past what shared memory holds, RMSNorm over 20480 and 70000
     columns (each in f32 and to bf16), attention at seq 2048 and at heads
-    of 256 (Gemma 7B's), the ring step at a block of 2048 keys.  The
+    of 256 (Gemma 7B's), the ring step at a block of 2048 keys, and the
+    MLP's two products at odd widths (on small and large tiles), a depth
+    of 1, a depth of 4096, 2188 column tiles and with every operand off a
+    16-byte boundary.  The
     tolerances are the kernels' rows'; these launches count on no path."""
     g = torch.Generator().manual_seed(19)
 
@@ -632,6 +692,30 @@ def domain_checks() -> None:
         checks.append(("rmsnorm", [rows, d], float((y - want_y).abs().max()),
                        bool(((y - want_y).abs() <= 1e-6 + 1e-5 * want_y.abs()).all())
                        and bool(((y16 - want16).abs() <= bf16_ulp(want16)).all())))
+    def unaligned(t):
+        """``t``, contiguous, 2 bytes past a 16-byte boundary."""
+        out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+        return out.view(t.shape).copy_(t)
+
+    for m, k, n, shift in ((91, 72, 200, False), (3, 1, 5, False), (1000, 130, 77, False),
+                           (3000, 72, 1000, False), (64, 4096, 96, False), (7, 16, 70000, False),
+                           (91, 72, 200, True), (3000, 72, 1000, True)):
+        place = unaligned if shift else (lambda t: t)
+        where = "unaligned" if shift else "aligned"
+        x = place(normal(m, k).bfloat16())
+        w1 = place(normal(k, n, scale=3.0 / math.sqrt(k)).bfloat16())
+        h, h_pre = mlp.matmul_gelu(x, w1)
+        want_pre = mlp.matmul_gelu_ref(x, w1)[1]
+        checks.append((f"matmul_gelu ({where})", [m, k, n],
+                       float((h_pre.float() - want_pre.float()).abs().max()),
+                       within_floored_ulps(h_pre, want_pre, 1) and mlp.gelu_close(h, h_pre)))
+        dy = place(normal(m, k).bfloat16())
+        w2 = place(normal(n, k, scale=1.0 / math.sqrt(k)).bfloat16())
+        pre = place(normal(m, n, scale=3.0).bfloat16())
+        got, want = mlp.matmul_gelu_bwd(dy, w2, pre), mlp.matmul_gelu_bwd_ref(dy, w2, pre)
+        checks.append((f"matmul_gelu_bwd ({where})", [m, k, n],
+                       float((got.float() - want.float()).abs().max()), within_floored_ulps(got, want, 2)))
+
     x, gain, dy = normal(256, 20480, scale=3.0), normal(20480), normal(256, 20480)
     got, want = rmsnorm.rmsnorm_bwd(x, gain, dy), rmsnorm.rmsnorm_bwd_ref(x, gain, dy)
     checks.append(("rmsnorm_bwd", [256, 20480], max(float((a - b).abs().max()) for a, b in zip(got, want)),
@@ -702,23 +786,8 @@ def phase_kernels(inputs: dict, config: demo.DemoConfig) -> list[dict]:
     rows.append(rmsnorm_row(*inputs["rmsnorm"], "rmsnorm"))
     rows.append(rmsnorm_row(*inputs["rmsnorm_wide"], "rmsnorm_wide"))
 
-    # GELU: within 1 bf16 ulp of max(|y|, 2**-8) (both round an f32 value
-    # once; the plain 1 + tanh(u) cancels in f32 where |y| < 2**-8)
-    (h,) = inputs["gelu"]
-    got = gelu.gelu_tanh_fwd(h).float()
-    want = gelu.gelu_tanh_ref(h).float()
-    rows.append(dict(
-        name="gelu_tanh", route="triton",
-        source="operator_forge_torch/kernels/gelu.py",
-        replaces="operator_forge/tpu/demo.py:98",
-        fn=lambda: gelu.gelu_tanh_fwd(h),
-        plain=lambda: gelu.gelu_tanh_ref(h),
-        library=lambda: F.gelu(h, approximate="tanh"),
-        err=got - want, tolerance="1 bf16 ulp of max(|y|, 2**-8)",
-        ok=bool(((got - want).abs() <= bf16_ulp(want.abs().clamp_min(2.0**-8))).all()),
-        # cube, polynomial, exp, divide: 10 f32 operations an element
-        bound=bound(2 * h.numel() * 2, 10 * h.numel(), F32_FLOP_PER_S),
-    ))
+    rows.append(mlp_row(*inputs["mlp"], "matmul_gelu"))
+    rows.append(mlp_row(*inputs["mlp_wide"], "matmul_gelu_wide"))
     rows += backward_rows(inputs)
     rows.append(ring_row(config))
     rows.append(ring_bwd_row())
@@ -750,6 +819,8 @@ def phase_kernels(inputs: dict, config: demo.DemoConfig) -> list[dict]:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": time_ms(row["library"], reps),
             "library_graph_ms": graph_ms(row["library"], per_graph, reps // 2),
+            **{f"{what}_graph_ms": graph_ms(fn, per_graph, reps // 2)
+               for what, fn in row.get("extra", {}).items()},
         }
         print(json.dumps(line))
         out.append(line)
@@ -778,7 +849,7 @@ def phase_serve(config: demo.DemoConfig) -> dict:
     launches = read_counts()
     per_call = dict.fromkeys(launches, 0)
     per_call.update(causal_attention=config.n_layers, rmsnorm=2 * config.n_layers,
-                    gelu_tanh=config.n_layers)
+                    matmul_gelu=config.n_layers)
     for name, count in launches.items():
         if count != per_call[name] * len(requests):
             fail(f"{name} launched {count} times in {len(requests)} forward "
@@ -809,7 +880,7 @@ def phase_serve(config: demo.DemoConfig) -> dict:
     median_s = statistics.median(times)
     result = {
         "requests": len(requests),
-        "launches": {name: launches[name] for name in ("causal_attention", "rmsnorm", "gelu_tanh")},
+        "launches": {name: launches[name] for name in ("causal_attention", "rmsnorm", "matmul_gelu")},
         "max_abs_err_vs_cpu": worst,
         "forward_median_ms": median_s * 1e3,
         "tokens_per_s": config.batch * config.seq_len / median_s,
@@ -824,7 +895,7 @@ def step_launches(config: demo.DemoConfig) -> dict:
     return {
         "causal_attention": config.n_layers, "causal_attention_bwd": config.n_layers,
         "rmsnorm": 2 * config.n_layers, "rmsnorm_bwd": 2 * config.n_layers,
-        "gelu_tanh": config.n_layers, "gelu_tanh_bwd": config.n_layers,
+        "matmul_gelu": config.n_layers, "matmul_gelu_bwd": config.n_layers,
         "cross_entropy": 1, "cross_entropy_bwd": 1, "ring_attention_step": 0,
         "ring_attention_step_bwd": 0,
     }
@@ -1044,14 +1115,17 @@ def phase_wide() -> dict:
     reset_counts()
     loss = demo.loss_fn(params, tokens, config)
     vg_loss, _ = demo.value_and_grad(params, tokens, config)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     new, step_loss = demo.train_step(params, tokens, config)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = read_counts()
     per_step = step_launches(config)
     forward = {"causal_attention": config.n_layers, "rmsnorm": 2 * config.n_layers,
-               "gelu_tanh": config.n_layers, "cross_entropy": 1}
+               "matmul_gelu": config.n_layers, "cross_entropy": 1}
     for name, count in launches.items():
         want = forward.get(name, 0) + 2 * per_step[name]
         if count != want:
@@ -1077,7 +1151,8 @@ def phase_wide() -> dict:
         "config": WIDE, "loss": float(step_loss), "loss_err_vs_cpu": max(errs),
         "param_err_vs_cpu_of_tolerance": worst, "attention_path":
         "tiles" if attention.tiles(config.batch, config.seq_len, config.n_heads, config.head_dim) else "rows",
-        "step_s": step_s, "cpu_step_s": cpu_s, "launches": launches,
+        "step_s": step_s, "step_peak_allocated_bytes": peak, "cpu_step_s": cpu_s,
+        "launches": launches,
     }}))
     return launches
 
@@ -1153,7 +1228,7 @@ def main() -> None:
     phase_card()
     config = demo.DemoConfig()
     inputs = main_path_inputs(config)
-    phase_build(inputs)
+    phase_build()
     kernels = phase_kernels(inputs, config)
     paths = [phase_serve(config), phase_train(config)]
     wide = phase_wide()
@@ -1171,6 +1246,8 @@ def main() -> None:
     # the rows at the wide step's shapes: that phase's launches
     total["rmsnorm_wide"] = wide["rmsnorm"]
     total["cross_entropy_wide"] = wide["cross_entropy"] + wide["cross_entropy_bwd"]
+    total["matmul_gelu_wide"] = wide["matmul_gelu"]
+    total["matmul_gelu_bwd_wide"] = wide["matmul_gelu_bwd"]
     for line in kernels:
         line["launches"] = total[line["name"]]
         if line["launches"] < 1:

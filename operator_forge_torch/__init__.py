@@ -2,9 +2,9 @@
 
 The reference is the JAX package ``operator_forge/tpu/demo.py``; this
 package computes the same functions on the same parameter layout and is
-tested against it.  It imports ``torch`` (and ``triton`` only inside the
-functions that launch a Triton kernel), never ``jax`` or anything under
-``operator_forge``.
+tested against it.  It imports ``torch``, never ``jax`` or anything under
+``operator_forge``; its kernels are CUDA C++, built by ``nvcc`` at their
+first launch.
 
 - ``demo``: the model (``DemoConfig``, ``init_params``, ``params_from_jax``,
   ``forward``, ``loss_fn``, ``value_and_grad``, ``train_step``), its

@@ -92,59 +92,17 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxHeadDim = 128;
 constexpr float kMasked = -1e30f;  // the reference's finite mask fill
 
-// ---- PTX wrappers -------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// d += a b: a 16x16 (row), b 16x8 (col), d 16x8, f32 accumulation
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to bf16, lo in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float lo_of(uint32_t v) { return __uint_as_float(v << 16); }
-__device__ __forceinline__ float hi_of(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+// the PTX wrappers and packing, shared with mlp.cu (common.cuh)
+using of::cp_async16;
+using of::cp_async_commit;
+using of::cp_async_wait;
+using of::hi_of;
+using of::ldsm_x4;
+using of::ldsm_x4_trans;
+using of::lo_of;
+using of::mma;
+using of::pack;
+using of::smem_u32;
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));

@@ -9,15 +9,17 @@ keep the JAX layout: a dict ``{"embed", "unembed", "layers": [{"wqkv",
 ``(in, out)``, so ``forward`` computes ``x @ w`` as the reference does and
 ``params_from_jax`` is a plain conversion.  Every cast point of the
 reference is kept: bf16 operands for every product with f32 results, and
-the attention, RMSNorm, GELU and cross-entropy numerics of the kernels in
+the attention, RMSNorm, MLP and cross-entropy numerics of the kernels in
 ``kernels/``, each an autograd ``Function`` whose backward is a kernel too.
 Two of the casts are taken into the kernel beside them, with the same
 bits: RMSNorm writes the bf16 operand of the product after it, and cross
-entropy reads the bf16 logits and returns their gradient in bf16.
+entropy reads the bf16 logits and returns their gradient in bf16.  The
+MLP's GELU runs in the epilogue of the ``w1`` product's kernel, and its
+slope in the epilogue of the backward's ``dy @ w2ᵀ``.
 The kernels run where the tensors are: a CPU tensor takes the plain
-version, a CUDA tensor the hand-written kernel.  The products, the residual
-adds, the embedding gather and the SGD update stay plain tensor code, as
-the reference leaves them to XLA.
+version, a CUDA tensor the hand-written kernel.  The other products, the
+residual adds, the embedding gather and the SGD update stay plain tensor
+code, as the reference leaves them to XLA.
 
 Where the reference lets XLA shard one program over a ``jax.sharding.Mesh``,
 each rank here runs its own program on plain local tensors over
@@ -37,7 +39,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from .kernels.attention import causal_attention
 from .kernels.cross_entropy import cross_entropy
-from .kernels.gelu import gelu_tanh
+from .kernels.mlp import mlp
 from .kernels.ring_attention import ring_step, ring_step_bwd
 from .kernels.rmsnorm import rmsnorm, rmsnorm_to_bf16
 
@@ -151,9 +153,13 @@ def _attention(x: torch.Tensor, layer: dict, config: DemoConfig, model=None) -> 
 
 
 def _mlp(x: torch.Tensor, layer: dict, model=None) -> torch.Tensor:
-    """f32 or bf16 ``x``, with ``_attention``'s condition on its gradient."""
-    h = gelu_tanh(_bf16_matmul(x, layer["w1"]))
-    return reduce_from_model((h @ layer["w2"].to(torch.bfloat16)).float(), model)
+    """f32 or bf16 ``x``, with ``_attention``'s condition on its gradient.
+    The ``w1`` product, the GELU and the ``w2`` product are one autograd
+    Function (``kernels/mlp.py``); with a ``model`` group ``w1`` and ``w2``
+    are this rank's column and row shards."""
+    bf16 = torch.bfloat16
+    out = mlp(x.to(bf16), layer["w1"].to(bf16), layer["w2"].to(bf16))
+    return reduce_from_model(out.float(), model)
 
 
 def _logits(params: dict, tokens: torch.Tensor, config: DemoConfig, model=None) -> torch.Tensor:

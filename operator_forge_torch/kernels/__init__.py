@@ -3,12 +3,14 @@ ring attention's block step, each beside its plain PyTorch version.
 
 Every wrapper dispatches on the device of the tensor it is given: a CPU
 tensor goes to the plain version, a CUDA tensor to the kernel (or the
-wrapper raises).  Each module keeps plain integers ``launches`` (forward)
-and ``bwd_launches`` (backward) that its wrappers raise by one per call
-that launches the kernel (a call of two launches counts once), so a run
-can show that the main path went through the kernels.  Each module's
-autograd ``Function`` ties its forward and backward together.  Importing these modules needs neither
-``triton`` nor ``nvcc``: both are reached only at the first launch.
+wrapper raises).  Each module with a kernel keeps plain integers
+``launches`` (forward) and ``bwd_launches`` (backward) that its wrappers
+raise by one per call that launches the kernel (a call of two launches
+counts once), so a run can show that the main path went through the
+kernels.  Each module's autograd ``Function`` ties its forward and
+backward together.  Every kernel is CUDA C++ under ``csrc/``; importing
+these modules needs no ``nvcc``, which is reached only at the first
+launch.
 """
 
 import math
@@ -29,6 +31,16 @@ def within_ulps(got: torch.Tensor, want: torch.Tensor, n: int) -> bool:
     magnitude everywhere."""
     tol = n * float(bf16_ulp(want.float().abs().max()))
     return float((got.float() - want.float()).abs().max()) <= tol
+
+
+def within_floored_ulps(got: torch.Tensor, want: torch.Tensor, n: int) -> bool:
+    """Whether ``got`` lies within ``n`` bf16 ulps of each value of
+    ``want``, its magnitude floored at 2**-8 of ``want``'s largest: the
+    check of a bf16 product whose f32 sum runs in another order, which
+    moves a rounding by one ulp, and which cancels near zero."""
+    want = want.float()
+    floor = 2.0**-8 * want.abs().max()
+    return bool(((got.float() - want).abs() <= n * bf16_ulp(torch.maximum(want.abs(), floor))).all())
 
 
 def step_tolerance(p: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:

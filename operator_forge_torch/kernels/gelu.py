@@ -1,41 +1,32 @@
-"""Tanh-approximation GELU on bf16: a Triton kernel and its plain version.
+"""Tanh-approximation GELU on bf16: the formulas and their gradient, in
+plain PyTorch.
 
 Counterpart of ``jax.nn.gelu`` in ``operator_forge/tpu/demo.py::_mlp``
 (line 98), whose default is the tanh form (``torch``'s default is erf).
-
-Bound on an H100 SXM at DemoConfig() (h bf16 [512, 512]): it reads and
-writes 262,144 bf16 values once, 1,048,576 B: 0.31 us at 3.35 TB/s; its
-some 2.6 MFLOP of f32 arithmetic are nothing beside that.  At this size it
-is bound by launch overhead.  Design: a flat elementwise pass, 1024 values
-a program at 64-bit offsets (so 2**31 values or more are taken), bf16 in,
-the formula in f32, one rounding to bf16 on the store.
-``0.5 * (1 + tanh(u))`` is computed as ``1 / (1 + exp(-2u))``, the same
-function with no cancellation near ``u = 0``.  Triton serves as well as
-CUDA for a pure elementwise pass.
+``gelu_tanh_ref`` evaluates it in f32 and rounds once to the input's type.
 
 The backward is ``dx = bf16(f32(dy) * gelu'(f32(x)))``, with ``gelu'`` the
 derivative of the same tanh form, written with ``s = sigmoid(2u)`` as
 ``s + 2x s (1 - s) c (1 + 3 * 0.044715 x²)``, ``c = sqrt(2 / pi)``: no
 ``1 + tanh`` to cancel.  JAX differentiates ``jax.nn.gelu`` on bf16 in bf16
 steps; this follows the f32 formula rounded once, which is what autograd of
-``gelu_tanh_ref`` gives (ROADMAP.md, Queue 3, has the divergence).  Its
-bound at DemoConfig() (x, dy, dx bf16 [512, 512]): 1,572,864 B, 0.47 us at
-3.35 TB/s.  Design: the forward's flat elementwise pass with two inputs.
-``gelu_tanh`` ties the two directions together as an autograd ``Function``.
+``gelu_tanh_ref`` gives (ROADMAP.md, Queue 3, has the divergence).
+
+On the card the GELU has no kernel of its own: it runs in the epilogue of
+the product before it, and its slope in the epilogue of the backward's
+product (``kernels/mlp.py``, ``csrc/mlp.cu``), whose plain versions call
+these formulas.  ``gelu_tanh`` ties the two directions together as an
+autograd ``Function`` for CPU tensors, so that the model can be composed
+step by step on the CPU; on any other device it raises.
 """
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
 
 SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
-BLOCK = 1024
-
-launches = 0
-bwd_launches = 0
 
 
 def gelu_tanh_ref(x: torch.Tensor) -> torch.Tensor:
@@ -55,96 +46,33 @@ def gelu_tanh_bwd_ref(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return (dy.float() * slope).to(dy.dtype)
 
 
-@functools.cache
-def _kernel():
-    # Triton resolves the names a kernel uses through its module's globals,
-    # so ``tl`` is bound there, at the first launch rather than at import
-    global tl
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def gelu_kernel(x_ptr, y_ptr, n, BLOCK: tl.constexpr):
-        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-        inside = offs < n
-        x = tl.load(x_ptr + offs, mask=inside, other=0.0).to(tl.float32)
-        u = 0.7978845608028654 * (x + 0.044715 * (x * x * x))
-        y = x / (1.0 + tl.exp(-2.0 * u))
-        tl.store(y_ptr + offs, y.to(tl.bfloat16), mask=inside)
-
-    @triton.jit
-    def gelu_bwd_kernel(x_ptr, dy_ptr, dx_ptr, n, BLOCK: tl.constexpr):
-        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-        inside = offs < n
-        x = tl.load(x_ptr + offs, mask=inside, other=0.0).to(tl.float32)
-        dy = tl.load(dy_ptr + offs, mask=inside, other=0.0).to(tl.float32)
-        u = 0.7978845608028654 * (x + 0.044715 * (x * x * x))
-        s = 1.0 / (1.0 + tl.exp(-2.0 * u))
-        slope = s + 2.0 * x * s * (1.0 - s) * 0.7978845608028654 * (1.0 + 0.134145 * x * x)
-        tl.store(dx_ptr + offs, (dy * slope).to(tl.bfloat16), mask=inside)
-
-    return triton, gelu_kernel, gelu_bwd_kernel
-
-
-def gelu_tanh_fwd(x: torch.Tensor) -> torch.Tensor:
-    """bf16 -> bf16 tanh GELU: the plain version for a CPU tensor, the
-    Triton kernel for a CUDA tensor."""
-    global launches
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"gelu_tanh takes bf16, got {x.dtype}")
-    if x.device.type == "cpu":
-        return gelu_tanh_ref(x)
-    if x.device.type != "cuda" or not x.is_contiguous():
-        raise ValueError("gelu_tanh's kernel takes a contiguous CUDA tensor")
-    triton, kernel, _ = _kernel()
-    y = torch.empty_like(x)
-    n = x.numel()
-    with torch.cuda.device(x.device):
-        kernel[(triton.cdiv(n, BLOCK),)](x, y, n, BLOCK=BLOCK, num_warps=4)
-    launches += 1
-    return y
-
-
-def gelu_tanh_bwd(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """bf16 ``x`` and ``dy`` -> bf16 ``dx`` of the tanh GELU: the plain
-    version for CPU tensors, the Triton kernel for CUDA tensors."""
-    global bwd_launches
-    if x.dtype != torch.bfloat16 or dy.dtype != torch.bfloat16 or dy.shape != x.shape:
+def _check(*tensors: torch.Tensor) -> None:
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise ValueError(f"gelu_tanh takes bf16, got {[t.dtype for t in tensors]}")
+    if any(t.device.type != "cpu" for t in tensors):
         raise ValueError(
-            f"gelu_tanh_bwd takes bf16 x and dy of one shape, got {x.dtype} "
-            f"{tuple(x.shape)} and {dy.dtype} {tuple(dy.shape)}"
+            "gelu_tanh runs on the CPU only: on the card the GELU runs in the epilogue of "
+            "kernels.mlp.matmul_gelu (and its slope in matmul_gelu_bwd)"
         )
-    if x.device.type == "cpu" and dy.device.type == "cpu":
-        return gelu_tanh_bwd_ref(x, dy)
-    if (x.device.type != "cuda" or dy.device != x.device or not x.is_contiguous()
-            or not dy.is_contiguous()):
-        raise ValueError("gelu_tanh_bwd's kernel takes contiguous tensors on one CUDA device")
-    triton, _, kernel = _kernel()
-    dx = torch.empty_like(x)
-    n = x.numel()
-    with torch.cuda.device(x.device):
-        kernel[(triton.cdiv(n, BLOCK),)](x, dy, dx, n, BLOCK=BLOCK, num_warps=4)
-    bwd_launches += 1
-    return dx
 
 
 class GeluTanh(torch.autograd.Function):
-    """``gelu_tanh_fwd`` with ``gelu_tanh_bwd`` as its gradient; saves the
-    bf16 input."""
+    """``gelu_tanh_ref`` with ``gelu_tanh_bwd_ref`` as its gradient, for
+    bf16 CPU tensors; saves the input."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        _check(x)
         ctx.save_for_backward(x)
-        return gelu_tanh_fwd(x)
+        return gelu_tanh_ref(x)
 
     @staticmethod
     def backward(ctx, dy: torch.Tensor) -> torch.Tensor:
         (x,) = ctx.saved_tensors
-        return gelu_tanh_bwd(x, dy.contiguous())
+        _check(dy)
+        return gelu_tanh_bwd_ref(x, dy)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """Tanh GELU with a gradient, bf16 -> bf16: the forward kernel now and
-    the backward kernel under ``backward()`` (the plain versions for CPU
-    tensors)."""
+    """Tanh GELU with a gradient, bf16 -> bf16, on CPU tensors."""
     return GeluTanh.apply(x)

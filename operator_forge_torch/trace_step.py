@@ -11,8 +11,9 @@ step) on the host's clock without the profiler, then times as many again
 under ``torch.profiler``, and prints one JSON line: the host's median time
 per call in each of the two runs, the device's busy time per call in the
 profiled run (the union of the intervals of the CUDA kernels the profiler
-recorded), the device's idle share of that same run's host median, and
-the kernels ranked by device time per call.  It prints the card's name
+recorded), the device's idle share of that same run's host median, the
+peak device memory allocated during one call, and the kernels ranked by
+device time per call.  It prints the card's name
 and power limit first.  It fails where there is no card, and where the
 profiler records no device time.
 """
@@ -33,7 +34,7 @@ from .entry import entry, train_entry
 CALLS = 20
 WIDE_CALLS = 5
 WIDE = dict(vocab=32000, seq_len=2048, batch=2)
-TOP = 12
+TOP = 40
 
 
 def _host_ms(call, calls: int) -> float:
@@ -58,9 +59,13 @@ def _busy_us(spans: list) -> float:
 
 
 def profile(call, calls: int = CALLS) -> dict:
-    for _ in range(3):  # warm: Triton's first launches, cuBLAS, the allocator
+    for _ in range(3):  # warm: the kernels' builds, cuBLAS, the allocator
         call()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     host_ms = _host_ms(call, calls)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
@@ -82,6 +87,7 @@ def profile(call, calls: int = CALLS) -> dict:
         "device_busy_ms_per_call": busy_ms,
         "device_idle_share": 1.0 - busy_ms / profiled_ms,
         "kernel_launches_per_call": len(kernels) / calls,
+        "peak_allocated_bytes": peak,
         "top_kernels": [
             {"name": name[:96], "ms_per_call": us / 1e3 / calls, "launches_per_call": n / calls}
             for name, (us, n) in ranked[:TOP]

@@ -1,7 +1,7 @@
 """The port's kernels against their plain versions on the card.
 
-These tests need an NVIDIA GPU (Hopper: the CUDA source is built for
-``sm_90a``), ``nvcc`` and ``triton``; elsewhere they skip.  The file imports
+These tests need an NVIDIA GPU (Hopper: the CUDA sources are built for
+``sm_90a``) and ``nvcc``; elsewhere they skip.  The file imports
 neither JAX nor the JAX package, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -21,8 +21,8 @@ from torch.distributed.device_mesh import init_device_mesh
 from operator_forge_torch import demo
 from operator_forge_torch.entry import dryrun_multichip, train_entry
 from operator_forge_torch.kernels import (
-    attention, bf16_ulp, carry_close, gelu, grads_close, rmsnorm, run_twice, step_tolerance,
-    within_ulps,
+    attention, bf16_ulp, carry_close, gelu, grads_close, mlp, rmsnorm, run_twice, step_tolerance,
+    within_floored_ulps, within_ulps,
 )
 from operator_forge_torch.kernels import cross_entropy as ce
 from operator_forge_torch.kernels import ring_attention as ra
@@ -116,18 +116,68 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape):
     assert _within_bf16_ulp(got, want.to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("shape", [(512, 512), (1000,)])
-def test_gelu_kernel_matches_plain(cuda, shape):
-    """Within 1 bf16 ulp of max(|y|, 2**-8): both round an f32 value once,
-    and the plain version's 1 + tanh(u) cancels in f32 where |y| < 2**-8."""
-    x = _normal(shape, 3, cuda, scale=3.0).bfloat16()
-    before = gelu.launches
-    got = gelu.gelu_tanh(x)
+# (M, K, N) of the MLP's products: DemoConfig()'s, its half on two model
+# ranks (d_ff / 2), the wide step's M = 4096 (the large tiles), one row;
+# odd widths (element by element), a depth of 1, ragged edges on every
+# side of a small and of a large tile, a depth of many stages, and 2188
+# column tiles
+MLP_SHAPES = [(512, 128, 512), (512, 128, 256), (4096, 128, 512), (1, 128, 512), (91, 72, 200),
+              (3, 1, 5), (1000, 130, 77), (130, 200, 33), (3000, 72, 1000), (64, 4096, 96),
+              (7, 16, 70000)]
+
+
+def _bf16_at(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """``t`` in bf16, contiguous, ``offset`` values past a 16-byte
+    boundary (1: a base the kernels stage element by element)."""
+    out = torch.empty(t.numel() + offset, dtype=torch.bfloat16, device=t.device)[offset:]
+    return out.view(t.shape).copy_(t)
+
+
+def _mlp_fwd_inputs(m, k, n, device, offset=0, seed=3):
+    """x at unit scale and w1 scaled so that ``h_pre`` has a scale of 3,
+    the GELU's whole range."""
+    x = _bf16_at(_normal((m, k), seed, device), offset)
+    return x, _bf16_at(_normal((k, n), seed + 1, device, scale=3.0 / math.sqrt(k)), offset)
+
+
+def _mlp_bwd_inputs(m, k, n, device, offset=0, seed=9):
+    """dy and w2 as the forward's, h_pre at a scale of 3."""
+    dy = _bf16_at(_normal((m, k), seed, device), offset)
+    w2 = _bf16_at(_normal((n, k), seed + 1, device, scale=1.0 / math.sqrt(k)), offset)
+    return dy, w2, _bf16_at(_normal((m, n), seed + 2, device, scale=3.0), offset)
+
+
+@pytest.mark.parametrize("m, k, n", MLP_SHAPES)
+def test_matmul_gelu_kernel_matches_plain(cuda, m, k, n):
+    """h_pre within 1 bf16 ulp of the plain product's, each value floored
+    at 2**-8 of the max (only the order of the f32 sum differs); h within
+    ``mlp.gelu_close`` of the plain GELU of that h_pre.  One
+    launch a call, the same bits from two, and the served call (no h_pre)
+    gives h's bits."""
+    x, w1 = _mlp_fwd_inputs(m, k, n, cuda)
+    before = mlp.launches
+    (h, h_pre), same = run_twice(lambda: mlp.matmul_gelu(x, w1))
+    served, none = mlp.matmul_gelu(x, w1, keep_pre=False)
     torch.cuda.synchronize()
-    assert gelu.launches == before + 1
-    want = gelu.gelu_tanh_ref(x).float()
-    tol = bf16_ulp(want.abs().clamp_min(2.0**-8))
-    assert bool(((got.float() - want).abs() <= tol).all())
+    assert mlp.launches == before + 3 and same and none is None
+    assert h.shape == h_pre.shape == (m, n) and torch.equal(served, h)
+    assert within_floored_ulps(h_pre, mlp.matmul_gelu_ref(x, w1)[1], 1)
+    assert mlp.gelu_close(h, h_pre)
+
+
+@pytest.mark.parametrize("kernel", ["matmul_gelu", "matmul_gelu_bwd"])
+@pytest.mark.parametrize("m, k, n", [(91, 72, 200), (512, 128, 512), (3000, 72, 1000)])
+def test_mlp_kernels_on_unaligned_rows(cuda, kernel, m, k, n):
+    """Every operand 2 bytes past a 16-byte boundary: staged element by
+    element, with the tolerances of the aligned tests."""
+    if kernel == "matmul_gelu":
+        x, w1 = _mlp_fwd_inputs(m, k, n, cuda, offset=1)
+        h, h_pre = mlp.matmul_gelu(x, w1)
+        assert within_floored_ulps(h_pre, mlp.matmul_gelu_ref(x, w1)[1], 1)
+        assert mlp.gelu_close(h, h_pre)
+    else:
+        inputs = _mlp_bwd_inputs(m, k, n, cuda, offset=1)
+        assert within_floored_ulps(mlp.matmul_gelu_bwd(*inputs), mlp.matmul_gelu_bwd_ref(*inputs), 2)
 
 
 @pytest.mark.parametrize("b, s, n_heads, head_dim", ATTENTION_SHAPES)
@@ -165,17 +215,19 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6 * float(w.abs().max()))
 
 
-@pytest.mark.parametrize("shape", [(512, 512), (1000,)])
-def test_gelu_bwd_kernel_matches_plain(cuda, shape):
-    """Within 1 bf16 ulp of max(|dx|, 2**-8): both round an f32 value once;
-    the slope cancels near its zero, where |dx| is small."""
-    x = _normal(shape, 9, cuda, scale=3.0).bfloat16()
-    dy = _normal(shape, 10, cuda).bfloat16()
-    before = gelu.bwd_launches
-    (got,), same = run_twice(lambda: gelu.gelu_tanh_bwd(x, dy))
-    assert gelu.bwd_launches == before + 2 and same
-    want = gelu.gelu_tanh_bwd_ref(x, dy).float()
-    assert bool(((got.float() - want).abs() <= bf16_ulp(want.abs().clamp_min(2.0**-8))).all())
+@pytest.mark.parametrize("m, k, n", MLP_SHAPES)
+def test_matmul_gelu_bwd_kernel_matches_plain(cuda, m, k, n):
+    """dh_pre within 2 bf16 ulps of the plain composition's, each value
+    floored at 2**-8 of the max: the product dy @ w2ᵀ sums in another
+    order, which moves its rounding by one ulp, and the slope (up to 1.13)
+    scales that ulp before the second rounding, which can then land two
+    ulps of dh_pre apart.  One launch a call, the same bits from two."""
+    dy, w2, h_pre = _mlp_bwd_inputs(m, k, n, cuda)
+    before = mlp.bwd_launches
+    (got,), same = run_twice(lambda: mlp.matmul_gelu_bwd(dy, w2, h_pre))
+    torch.cuda.synchronize()
+    assert mlp.bwd_launches == before + 2 and same and got.shape == (m, n)
+    assert within_floored_ulps(got, mlp.matmul_gelu_bwd_ref(dy, w2, h_pre), 2)
 
 
 # DemoConfig()'s [512, 256] and rows of 1000 and 2048 (a warp a row in
@@ -228,15 +280,20 @@ def test_autograd_functions_match_autograd_of_plain(cuda):
     for g, w in ((gx.grad, wx.grad), (gg.grad, wg.grad)):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6 * float(w.abs().max()))
 
-    h = _normal((64, 128), 18, cuda, scale=3.0).bfloat16()
-    dh = _normal((64, 128), 19, cuda).bfloat16()
-    gh, wh = h.clone().requires_grad_(), h.clone().requires_grad_()
-    gelu.gelu_tanh(gh).backward(dh)
-    gelu.gelu_tanh_ref(wh).backward(dh)
-    # autograd of the plain forward differentiates the tanh form (its
-    # 1 - tanh² cancels in f32): 1 bf16 ulp of max(|dx|, 2**-8) still holds
-    assert bool(((gh.grad.float() - wh.grad.float()).abs()
-                 <= bf16_ulp(wh.grad.float().abs().clamp_min(2.0**-8))).all())
+    # the MLP against autograd of its plain composition: each gradient
+    # within 2 bf16 ulps of its max (a bf16 product of dh_pre, which moves
+    # by up to 2 ulps, summed in another order; autograd of the plain GELU
+    # differentiates the tanh form)
+    operands = (_normal((2, 9, 64), 18, cuda).bfloat16(),
+                _normal((64, 96), 19, cuda, scale=3.0 / 8).bfloat16(),
+                _normal((96, 48), 37, cuda, scale=0.1).bfloat16())
+    dy = _normal((2, 9, 48), 38, cuda).bfloat16()
+    got = [t.clone().requires_grad_() for t in operands]
+    want = [t.clone().requires_grad_() for t in operands]
+    mlp.mlp(*got).backward(dy)
+    (gelu.gelu_tanh_ref(want[0] @ want[1]) @ want[2]).backward(dy)
+    for g, w in zip(got, want):
+        assert within_ulps(g.grad, w.grad, 2)
 
     logits = _normal((4, 9, 256), 20, cuda)
     targets = torch.randint(0, 256, (4, 9), generator=torch.Generator().manual_seed(21)).to(cuda)
@@ -480,6 +537,34 @@ def test_rmsnorm_to_bf16_is_one_kernel_with_no_cast_after_it(cuda):
     assert not any("elementwise" in k for k in kernels), kernels
 
 
+def test_mlp_runs_no_kernel_between_its_products(cuda):
+    """The MLP's forward and backward run one hand kernel each and, beside
+    them, only the products (no elementwise kernel: no GELU, no cast)."""
+    operands = [_normal(shape, 39 + i, cuda, scale=0.1).bfloat16().requires_grad_()
+                for i, shape in enumerate(((8, 64, 128), (128, 512), (512, 128)))]
+    dy = _normal((8, 64, 128), 42, cuda).bfloat16()
+    kernels = _cuda_kernels(lambda: torch.autograd.grad(mlp.mlp(*operands), operands, dy))
+    assert sum("mlp_kernel" in k for k in kernels) == 2, kernels
+    assert not any("elementwise" in k or "gelu" in k.lower() for k in kernels), kernels
+
+
+def test_mlp_kernels_replay_from_a_cuda_graph(cuda):
+    """A CUDA graph of both kernels, replayed twice, gives the eager
+    outputs' bits each time."""
+    x, w1 = _mlp_fwd_inputs(512, 128, 512, cuda)
+    dy, w2, h_pre = _mlp_bwd_inputs(512, 128, 512, cuda)
+    eager = (*mlp.matmul_gelu(x, w1), mlp.matmul_gelu_bwd(dy, w2, h_pre))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = (*mlp.matmul_gelu(x, w1), mlp.matmul_gelu_bwd(dy, w2, h_pre))
+    for _ in range(2):
+        for t in replayed:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(replayed, eager))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cross_entropy_replays_from_a_cuda_graph(cuda, dtype):
     """A CUDA graph of the forward, replayed twice, gives the eager loss's
@@ -528,27 +613,30 @@ def _slices_close(got, want_of, rows: int, check) -> None:
         check(got[part], want_of(part))
 
 
-@pytest.mark.parametrize("name", ["gelu", "gelu_bwd", "rmsnorm", "rmsnorm_bwd", "cross_entropy",
-                                  "rmsnorm_bf16", "cross_entropy_bf16"])
+@pytest.mark.parametrize("name", ["matmul_gelu", "matmul_gelu_bwd", "rmsnorm", "rmsnorm_bwd",
+                                  "cross_entropy", "rmsnorm_bf16", "cross_entropy_bf16"])
 def test_kernel_past_2_31_values(cuda, name):
     """A tensor of more than 2**31 values, whose offsets need 64 bits: the
     kernel's rows (or values) at both ends within the tolerances above of
     the plain version on the same slices (bf16 outputs within 1 bf16 ulp
     of the plain value cast)."""
     g = torch.Generator(device="cuda").manual_seed(60)
-    if name in ("gelu", "gelu_bwd"):
-        x = (3 * torch.randn(2**31 + 1000, generator=g, device="cuda")).bfloat16()
-        if name == "gelu":
-            got, plain = gelu.gelu_tanh(x), lambda part: gelu.gelu_tanh_ref(x[part])
+    if name in ("matmul_gelu", "matmul_gelu_bwd"):
+        # outputs of 2**31 + 32768 values: rows of 512, a depth of 16
+        m, k, n = 2**31 // 512 + 64, 16, 512
+        a = torch.randn(m, k, generator=g, device="cuda").bfloat16()
+        if name == "matmul_gelu":
+            w1 = (0.75 * torch.randn(k, n, generator=g, device="cuda")).bfloat16()
+            h, h_pre = mlp.matmul_gelu(a, w1)
+            for part in (slice(0, 4096), slice(-4096, None)):
+                assert within_floored_ulps(h_pre[part], a[part] @ w1, 1)
+                assert mlp.gelu_close(h[part], h_pre[part])
         else:
-            dy = torch.randn(x.shape, generator=g, device="cuda").bfloat16()
-            got, plain = gelu.gelu_tanh_bwd(x, dy), lambda part: gelu.gelu_tanh_bwd_ref(x[part], dy[part])
-
-        def check(a, b):
-            b = b.float()
-            assert bool(((a.float() - b).abs() <= bf16_ulp(b.abs().clamp_min(2.0**-8))).all())
-
-        _slices_close(got, plain, 1 << 20, check)
+            w2 = (0.25 * torch.randn(n, k, generator=g, device="cuda")).bfloat16()
+            h_pre = torch.randn(m, n, generator=g, device="cuda", dtype=torch.bfloat16) * 3
+            got = mlp.matmul_gelu_bwd(a, w2, h_pre)
+            _slices_close(got, lambda part: mlp.matmul_gelu_bwd_ref(a[part], w2, h_pre[part]), 4096,
+                          lambda x, y: within_floored_ulps(x, y, 2) or pytest.fail("beyond 2 ulps"))
     elif name == "rmsnorm":
         x = torch.randn(2**31 // 16384 + 1, 16384, generator=g, device="cuda")
         gain = torch.randn(16384, generator=g, device="cuda")

@@ -104,6 +104,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys, operator_forge_torch, operator_forge_torch.demo, "
         "operator_forge_torch.entry, operator_forge_torch.kernels.attention, "
         "operator_forge_torch.kernels.build, operator_forge_torch.kernels.gelu, "
+        "operator_forge_torch.kernels.mlp, "
         "operator_forge_torch.kernels.rmsnorm, operator_forge_torch.kernels.cross_entropy, "
         "operator_forge_torch.kernels.ring_attention, operator_forge_torch.ranks, "
         "operator_forge_torch.trace_step\n"
@@ -120,7 +121,7 @@ def test_kernel_modules_import_without_triton_or_nvcc():
     proc = _run(
         "import sys\n"
         "sys.modules['triton'] = None\n"
-        "from operator_forge_torch.kernels import attention, build, cross_entropy, gelu, rmsnorm\n"
+        "from operator_forge_torch.kernels import attention, build, cross_entropy, gelu, mlp, rmsnorm\n"
         "from operator_forge_torch.kernels import ring_attention\n"
         "from operator_forge_torch.entry import entry, train_entry\n"
         "fn, args = entry(device='cpu')\n"

@@ -174,12 +174,16 @@ def test_gelu_matches_jax_in_bf16():
 
 
 def test_gelu_wrapper_takes_plain_version_on_cpu():
+    """``gelu_tanh`` on a CPU tensor is the plain version.  It raises on
+    f32, and on any other device: on the card the GELU runs in the epilogue
+    of ``mlp.matmul_gelu``, whose wrapper ``tests/test_torch_mlp.py``
+    holds to its plain version and its counter."""
     x = torch.from_numpy(_sigma3((64, 128), seed=6)).bfloat16()
-    before = gelu.launches
     assert torch.equal(gelu.gelu_tanh(x), gelu.gelu_tanh_ref(x))
-    assert gelu.launches == before
     with pytest.raises(ValueError):
         gelu.gelu_tanh(x.float())
+    with pytest.raises(ValueError, match="matmul_gelu"):
+        gelu.gelu_tanh(x.to("meta"))
 
 
 def test_bf16_ulp():

@@ -343,17 +343,17 @@ class TestWrappersOnCpu:
         assert rmsnorm.bwd_launches == before
 
     def test_gelu(self):
+        """``gelu_tanh``'s gradient on CPU tensors is the plain backward.
+        The fused wrappers that replace its kernels on the card, and what
+        they reject, are in ``tests/test_torch_mlp.py``."""
         x = torch.from_numpy(_normal((64, 128), 33, scale=3.0)).bfloat16()
         dy = torch.from_numpy(_normal((64, 128), 34)).bfloat16()
-        before = (gelu.launches, gelu.bwd_launches)
-        assert torch.equal(gelu.gelu_tanh_bwd(x, dy), gelu.gelu_tanh_bwd_ref(x, dy))
         live = x.clone().requires_grad_()
         gelu.gelu_tanh(live).backward(dy)
         assert torch.equal(live.grad, gelu.gelu_tanh_bwd_ref(x, dy))
-        assert (gelu.launches, gelu.bwd_launches) == before
-        for bad_x, bad_dy in ((x.float(), dy), (x, dy.float()), (x, dy[:32])):
+        for bad in (x.float(), x.to("meta")):
             with pytest.raises(ValueError):
-                gelu.gelu_tanh_bwd(bad_x, bad_dy)
+                gelu.gelu_tanh(bad.requires_grad_())
 
     def test_cross_entropy(self):
         logits, targets = _logits_and_targets((4, 16), 256, 35)
