@@ -26,10 +26,13 @@ Phases, each of which exits non-zero on a failed check:
       the parent's route (the cuBLAS product alone, and with PyTorch's
       GELU after it), from a CUDA graph; print one JSON line per
       kernel, then the kernels ranked by device time over their PyTorch
-      call's, the RMSNorm backward's cluster size, and the ring step's
-      time on longer blocks beside SDPA's.  The ring's backward step is
-      checked at every mask case at five shapes, one past each former cap.
-      Then each kernel past its former cap (``domain_checks``);
+      call's, and the RMSNorm backward's cluster size.  The ring step and
+      its backward are checked at every mask case at several shapes (the
+      backward at each edge of its tiled kernel) and timed at every block
+      the ring phases launch them at (``RING_TIMED``, ``RING_BWD_TIMED``),
+      each beside SDPA (its backward op) under the same mask, each bound
+      counting the pairs the mask leaves.  Then each kernel past its
+      former cap (``domain_checks``);
   (d) serve requests: ``entry()``'s forward on seeded token batches, each
       checked against the same forward on the CPU (plain versions), with
       every kernel's launch count read around those calls; print the
@@ -58,14 +61,17 @@ Phases, each of which exits non-zero on a failed check:
       steps with per-step launch counts, the first against ``train_step``
       on the same parameters and tokens; ``run_dryrun(1)`` in this process
       and then ``entry.dryrun_multichip(1)``, which spawns its own rank;
-  (i) print ``{"kernels": [...]}``, launches summed over (d), (e), (e'),
-      (g) and (h) (for the ``_wide`` rows, over (e')), then, last, the
-      device line.
+  (i) print the ring phases' launches by block and mask, then
+      ``{"kernels": [...]}``, launches summed over (d), (e), (e'), (g) and
+      (h) (for the ``_wide`` rows, over (e'); for a ring row at one block,
+      its launches at that block and mask in (g)), then, last, the device
+      line.
 It imports nothing of JAX: the card's machine has none.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -98,9 +104,6 @@ REQUESTS = 4
 TRAIN_STEPS = 10
 SHARDED_STEPS = 3
 RING_RANKS = 4
-# longer ring blocks, [batch, heads, seq, head_dim], whose earlier-block
-# step is timed beside SDPA's
-RING_TIMED = ((1, 4, 256, 32), (1, 4, 1024, 32))
 # each wrapper's launch counter; the kernels line's cross_entropy sums the
 # forward's and the backward's
 COUNTERS = {
@@ -483,6 +486,17 @@ RING_CASES = {
 }
 
 
+def mask_of(my: int, origin: int) -> str:
+    """The mask a step of query block ``my`` against block ``origin`` sees."""
+    return "diagonal" if origin == my else "earlier" if origin < my else "later"
+
+
+def mask_pairs(b: int, h: int, s: int, mask: str) -> int:
+    """The (query, key) pairs a block step's mask leaves: s^2 for an
+    earlier block, s (s + 1) / 2 on the diagonal, a plane."""
+    return b * h * (s * s if mask == "earlier" else s * (s + 1) // 2)
+
+
 def ring_case(shape, dtype, case, g):
     """q, k, v of one ring step on the card and its carry, fresh or after
     the diagonal block of other keys (through the plain version)."""
@@ -496,18 +510,66 @@ def ring_case(shape, dtype, case, g):
     return (q, k, v), carry, my, origin
 
 
-def ring_row(config: demo.DemoConfig) -> dict:
+def sdpa_mask(s: int, mask: str):
+    """SDPA's boolean mask for a block step: every key for an earlier
+    block, None (causal) on the diagonal."""
+    return torch.ones(s, s, dtype=torch.bool, device="cuda") if mask == "earlier" else None
+
+
+def ring_block_row(name: str, shape, case: str, g) -> dict:
+    """The ring's block step at one block the ring phases launch it at,
+    f32: the carry within rtol and atol 2e-5 of the plain version (past
+    1024 keys, atol 2e-5 of each part's max), timed beside SDPA under the
+    same mask, its bound counting the pairs the mask leaves."""
+    (q, k, v), carry, my, origin = ring_case(shape, torch.float32, case, g)
+    b, h, s, d = shape
+    mask = mask_of(my, origin)
+    want = ra.ring_step_ref(q, k, v, *carry, my, origin)
+    got = ra.ring_step(q, k, v, *(t.clone() for t in carry), my, origin)
+    scratch = [t.clone() for t in carry]
+    attn_mask = sdpa_mask(s, mask)
+    carry_bytes = sum(t.numel() * 4 for t in carry)
+    return dict(
+        name=name, shape=list(shape), block=["fwd", s, mask], route="cuda",
+        source="operator_forge_torch/csrc/ring_attention.cu",
+        replaces="operator_forge/tpu/demo.py:276", reps=10 if s >= 1024 else 100,
+        fn=lambda: ra.ring_step(q, k, v, *scratch, my, origin),
+        repeat=lambda: ra.ring_step(q, k, v, *(t.clone() for t in carry), my, origin),
+        plain=lambda: ra.ring_step_ref(q, k, v, *carry, my, origin),
+        library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                                       is_causal=attn_mask is None),
+        err=torch.tensor([max(float((a - w).abs()[torch.isfinite(w)].max()) for a, w in zip(got, want))]),
+        tolerance="rtol and atol 2e-5 (past 1024 keys atol 2e-5 of each part's max); "
+                  "-inf in the same places",
+        ok=all(carry_close(a, w, scaled=s > 1024) for a, w in zip(got, want)),
+        # read q, k, v and the carry, write the carry; per pair the mask
+        # leaves: the two f32 products (2 * 2 * d) and the scale, exp and sum
+        bound=bound(3 * q.numel() * 4 + 2 * carry_bytes, (4 * d + 4) * mask_pairs(b, h, s, mask),
+                    F32_FLOP_PER_S),
+    )
+
+
+# the ring step's timed rows, at the blocks the ring phases launch it at:
+# (name, [batch, heads, block, head_dim], case); the first is DemoConfig()'s
+# heads over seq 64 on 4 ranks
+RING_TIMED = (("ring_attention_step", (8, 4, 16, 32), "earlier"),
+              ("ring_attention_step_256", (1, 4, 256, 32), "earlier"),
+              ("ring_attention_step_1024", (1, 4, 1024, 32), "earlier"),
+              ("ring_attention_step_4096", (1, 4, 4096, 32), "first"))
+
+
+def ring_rows(config: demo.DemoConfig) -> list[dict]:
     """The ring's block step at every mask case, at the ring of
     ``DemoConfig()``'s heads over seq 64 on 4 ranks, a longer block and a
     ragged one (also in bf16): the carry within rtol and atol 2e-5 of the
     plain version, the same bits from two launches, and a later block's
-    carry left bit for bit.  The line times the earlier block at the first
-    shape, each case's times go on a line of their own."""
+    carry left bit for bit.  Each case's times at the first shape go on a
+    line of their own; then one row a block of ``RING_TIMED``."""
     g = torch.Generator().manual_seed(11)
     first = (config.batch, config.n_heads, config.seq_len // RING_RANKS, config.head_dim)
     shapes = [(first, torch.float32), ((1, config.n_heads, 256, config.head_dim), torch.float32),
               ((2, 3, 17, 16), torch.float32), ((2, 3, 17, 16), torch.bfloat16)]
-    worst, cases = 0.0, {}
+    cases = {}
     for shape, dtype in shapes:
         for case in RING_CASES:
             qkv, carry, my, origin = ring_case(shape, dtype, case, g)
@@ -520,48 +582,14 @@ def ring_row(config: demo.DemoConfig) -> dict:
                 fail(f"{where} disagrees with its plain version beyond rtol and atol 2e-5")
             if case == "later" and not all(torch.equal(a, b) for a, b in zip(got, carry)):
                 fail(f"{where}: a fully masked block changed the carry")
-            worst = max([worst] + [float((a - b).abs()[torch.isfinite(b)].max()) for a, b in zip(got, want)])
             if shape == first:
                 scratch = [t.clone() for t in carry]
                 cases[case] = {
                     "ms": time_ms(lambda: ra.ring_step(*qkv, *scratch, my, origin)),
                     "graph_ms": graph_ms(lambda: ra.ring_step(*qkv, *scratch, my, origin)),
                 }
-    # an earlier block at each longer shape, beside SDPA at that shape
-    for long in RING_TIMED:
-        (q, k, v), carry, my, origin = ring_case(long, torch.float32, "earlier", g)
-        scratch = [t.clone() for t in carry]
-        every_key = torch.ones(long[2], long[2], dtype=torch.bool, device="cuda")
-        cases[f"earlier {list(long)}"] = {
-            "graph_ms": graph_ms(lambda: ra.ring_step(q, k, v, *scratch, my, origin)),
-            "library_graph_ms": graph_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=every_key)),
-        }
     print(json.dumps({"ring_attention_step_cases": {"shape": list(first), **cases}}))
-
-    qkv, carry, my, origin = ring_case(first, torch.float32, "earlier", g)
-    scratch = [t.clone() for t in carry]
-    b, h, s, d = first
-    q, k, v = qkv
-    mask = torch.ones(s, s, dtype=torch.bool, device="cuda")  # an earlier block: every key
-    carry_bytes = sum(t.numel() * 4 for t in carry)
-    return dict(
-        name="ring_attention_step", route="cuda",
-        source="operator_forge_torch/csrc/ring_attention.cu",
-        replaces="operator_forge/tpu/demo.py:276",
-        fn=lambda: ra.ring_step(*qkv, *scratch, my, origin),
-        repeat=lambda: ra.ring_step(*qkv, *(t.clone() for t in carry), my, origin),
-        plain=lambda: ra.ring_step_ref(*qkv, *carry, my, origin),
-        library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
-        err=torch.tensor([worst]),
-        tolerance="rtol and atol 2e-5 at every mask case; -inf in the same places; "
-                  "a later block keeps the carry's bits",
-        ok=True,
-        # read q, k, v and the carry, write the carry; per (query, key):
-        # the two f32 products (2 * 2 * d) and the scale, exp and sum
-        bound=bound(3 * q.numel() * 4 + 2 * carry_bytes, (4 * d + 4) * b * h * s * s,
-                    F32_FLOP_PER_S),
-    )
+    return [ring_block_row(name, shape, case, g) for name, shape, case in RING_TIMED]
 
 
 def ring_bwd_case(shape, dtype, case, g):
@@ -576,22 +604,77 @@ def ring_bwd_case(shape, dtype, case, g):
     return (q, k, v, dout, m, den, big_d), my, origin, acc
 
 
-# the backward step's shapes: the ring of DemoConfig()'s heads over 4 ranks
-# (f32 and bf16), longer blocks, one past the forward's former cap of 1024
-# keys, and a head past the former cap of 128
+# the backward step's checked shapes: the ring of DemoConfig()'s heads over
+# 4 ranks (f32 and bf16) on the row kernel; on the tiled kernel the blocks
+# one under, at and one over its first block (64 keys), a 32-row tile and
+# a 64-row chunk, a 64-row tile, and the tiles whose chunks two blocks of
+# a cluster share (from 256 keys); heads not a multiple of 4, odd and
+# bf16, the widest it takes (also on 64-row tiles, one buffer) and one past
+# it; a head past the row kernel's former cap of 128; longer blocks, one
+# past the forward's former cap of 1024 keys
 RING_BWD_SHAPES = (((8, 4, 16, 32), torch.float32), ((8, 4, 16, 32), torch.bfloat16),
-                   ((1, 4, 256, 32), torch.float32), ((1, 4, 2048, 32), torch.float32),
-                   ((1, 2, 64, 160), torch.float32))
+                   ((1, 1, 63, 32), torch.float32), ((1, 1, 64, 32), torch.float32),
+                   ((1, 1, 65, 32), torch.float32), ((1, 2, 96, 32), torch.float32),
+                   ((1, 2, 97, 32), torch.float32), ((1, 2, 129, 32), torch.float32),
+                   ((16, 8, 128, 32), torch.float32), ((16, 8, 129, 32), torch.float32),
+                   ((1, 1, 255, 32), torch.float32), ((1, 1, 257, 32), torch.float32),
+                   ((1, 2, 300, 48), torch.bfloat16),
+                   ((1, 2, 150, 20), torch.float32), ((2, 2, 100, 33), torch.bfloat16),
+                   ((1, 2, 128, 128), torch.float32), ((16, 8, 128, 128), torch.float32),
+                   ((1, 2, 128, 129), torch.float32), ((1, 2, 64, 160), torch.float32),
+                   ((1, 4, 256, 32), torch.float32), ((1, 4, 2048, 32), torch.float32))
+
+# the backward step's timed rows, at every block the ring's gradient
+# (phase_ring_grad) launches it at
+RING_BWD_TIMED = (("ring_attention_step_bwd", (8, 4, 16, 32), "earlier"),
+                  ("ring_attention_step_bwd_64", (8, 4, 64, 32), "diagonal"),
+                  ("ring_attention_step_bwd_256", (1, 4, 256, 32), "earlier"),
+                  ("ring_attention_step_bwd_1024", (1, 4, 1024, 32), "earlier"),
+                  ("ring_attention_step_bwd_1024d", (1, 4, 1024, 32), "diagonal"),
+                  ("ring_attention_step_bwd_4096", (1, 4, 4096, 32), "diagonal"))
 
 
-def ring_bwd_row() -> dict:
+def ring_bwd_block_row(name: str, shape, case: str, g) -> dict:
+    """The backward step at one block the ring's gradient launches it at,
+    f32, from zero accumulators (so that the error is the block's own
+    sums'): dq, dk and dv within ``grads_close`` of the plain version,
+    timed beside SDPA's backward op under the same mask, its bound counting
+    the pairs the mask leaves."""
+    inputs, my, origin, acc = ring_bwd_case(shape, torch.float32, case, g)
+    acc = [torch.zeros_like(t) for t in acc]
+    b, h, s, d = shape
+    mask = mask_of(my, origin)
+    want = ra.ring_step_bwd_ref(*inputs, my, origin, *acc)
+    got = ra.ring_step_bwd(*inputs, my, origin, *(t.clone() for t in acc))
+    scratch = [t.clone() for t in acc]
+    q, k, v, dout = inputs[:4]
+    picked, sdpa_bwd = sdpa_backward(q, k, v, dout, sdpa_mask(s, mask))
+    return dict(
+        name=name, shape=list(shape), block=["bwd", s, mask], route="cuda",
+        source="operator_forge_torch/csrc/ring_attention.cu",
+        replaces="operator_forge/tpu/demo.py:276", reps=10 if s >= 1024 else 100,
+        fn=lambda: ra.ring_step_bwd(*inputs, my, origin, *scratch),
+        repeat=lambda: ra.ring_step_bwd(*inputs, my, origin, *(t.clone() for t in acc)),
+        plain=lambda: ra.ring_step_bwd_ref(*inputs, my, origin, *acc),
+        library=sdpa_bwd, library_op=picked,
+        err=torch.cat([(a - w).flatten() for a, w in zip(got, want)]),
+        tolerance="rtol and atol 2e-5 of each output's max (grads_close)",
+        ok=all(grads_close(a, w) for a, w in zip(got, want)),
+        # read q, k, v, dout and m, den, D; read and write dq, dk, dv; five
+        # products of 2 * d per pair the mask leaves
+        bound=bound(4 * q.numel() * 4 + 3 * b * h * s * 4 + 6 * q.numel() * 4,
+                    5 * 2 * d * mask_pairs(b, h, s, mask), F32_FLOP_PER_S),
+    )
+
+
+def ring_bwd_rows() -> list[dict]:
     """The ring's backward block step at every mask case and every shape
     of ``RING_BWD_SHAPES``: dq, dk and dv within ``grads_close`` of the
     plain version, the same bits from two launches, a later block's
-    accumulators left bit for bit.  The line times the earlier block at the
-    first shape; each case's times go on a line of their own."""
+    accumulators left bit for bit.  Each case's times at the first shape go
+    on a line of their own; then one row a block of ``RING_BWD_TIMED``."""
     g = torch.Generator().manual_seed(17)
-    worst, cases = 0.0, {}
+    cases = {}
     first = RING_BWD_SHAPES[0][0]
     for shape, dtype in RING_BWD_SHAPES:
         for case in RING_CASES:
@@ -605,36 +688,11 @@ def ring_bwd_row() -> dict:
                 fail(f"{where} disagrees with its plain version beyond rtol and atol 2e-5 of its max")
             if case == "later" and not all(torch.equal(a, b) for a, b in zip(got, acc)):
                 fail(f"{where}: a fully masked block changed the accumulators")
-            worst = max([worst] + [float((a - b).abs().max()) for a, b in zip(got, want)])
             if shape == first and dtype == torch.float32:
                 scratch = [t.clone() for t in acc]
                 cases[case] = {"graph_ms": graph_ms(lambda: ra.ring_step_bwd(*inputs, my, origin, *scratch))}
     print(json.dumps({"ring_attention_step_bwd_cases": {"shape": list(first), **cases}}))
-
-    inputs, my, origin, acc = ring_bwd_case(first, torch.float32, "earlier", g)
-    scratch = [t.clone() for t in acc]
-    q, k, v, dout = inputs[:4]
-    b, h, s, d = first
-    every_key = torch.ones(s, s, dtype=torch.bool, device="cuda")  # an earlier block
-    picked, sdpa_bwd = sdpa_backward(q, k, v, dout, every_key)
-    print(json.dumps({"ring_attention_step_bwd_yardstick": picked}))
-    return dict(
-        name="ring_attention_step_bwd", route="cuda",
-        source="operator_forge_torch/csrc/ring_attention.cu",
-        replaces="operator_forge/tpu/demo.py:276",
-        fn=lambda: ra.ring_step_bwd(*inputs, my, origin, *scratch),
-        repeat=lambda: ra.ring_step_bwd(*inputs, my, origin, *(t.clone() for t in acc)),
-        plain=lambda: ra.ring_step_bwd_ref(*inputs, my, origin, *acc),
-        library=sdpa_bwd,
-        err=torch.tensor([worst]),
-        tolerance="rtol and atol 2e-5 of each output's max at every mask case; "
-                  "a later block keeps the accumulators' bits",
-        ok=True,
-        # read q, k, v, dout and m, den, D; read and write dq, dk, dv; five
-        # products of 2 * d per (query, key) pair an earlier block sees
-        bound=bound(4 * q.numel() * 4 + 3 * b * h * s * 4 + 6 * q.numel() * 4,
-                    5 * 2 * d * b * h * s * s, F32_FLOP_PER_S),
-    )
+    return [ring_bwd_block_row(name, shape, case, g) for name, shape, case in RING_BWD_TIMED]
 
 
 def ring_step_f64(q, k, v, m, num, den, my: int, origin: int) -> tuple:
@@ -789,8 +847,8 @@ def phase_kernels(inputs: dict, config: demo.DemoConfig) -> list[dict]:
     rows.append(mlp_row(*inputs["mlp"], "matmul_gelu"))
     rows.append(mlp_row(*inputs["mlp_wide"], "matmul_gelu_wide"))
     rows += backward_rows(inputs)
-    rows.append(ring_row(config))
-    rows.append(ring_bwd_row())
+    rows += ring_rows(config)
+    rows += ring_bwd_rows()
     domain_checks()
 
     out = []
@@ -812,12 +870,14 @@ def phase_kernels(inputs: dict, config: demo.DemoConfig) -> list[dict]:
         line = {
             "name": row["name"], "route": row["route"], "source": row["source"],
             "replaces": row["replaces"], **({"shape": row["shape"]} if "shape" in row else {}),
+            **({"block": row["block"]} if "block" in row else {}),
             "launches": None,
             "max_abs_err": err, "tolerance": row["tolerance"], "deterministic": True,
             "ms": statistics.mean(ms), "graph_ms": graph_ms(row["fn"], per_graph, reps // 2),
             "plain_ms": statistics.mean(plain_ms),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": time_ms(row["library"], reps),
+            **({"library_op": row["library_op"]} if "library_op" in row else {}),
             "library_graph_ms": graph_ms(row["library"], per_graph, reps // 2),
             **{f"{what}_graph_ms": graph_ms(fn, per_graph, reps // 2)
                for what, fn in row.get("extra", {}).items()},
@@ -961,6 +1021,11 @@ def phase_train(config: demo.DemoConfig) -> dict:
     return launches
 
 
+# the ring phases' launches of each kernel by (direction, block, mask):
+# ("fwd" or "bwd", keys a block, "diagonal", "earlier" or "later")
+RING_BLOCK_LAUNCHES = collections.Counter()
+
+
 def replay_ring(q, k, v, n: int) -> torch.Tensor:
     """The ``n``-rank ring's schedule in one process: at step j, rank r
     holds block (r - j) % n, and every block step goes through the kernel;
@@ -976,6 +1041,7 @@ def replay_ring(q, k, v, n: int) -> torch.Tensor:
         for j in range(n):
             origin = (r - j) % n
             ra.ring_step(qs[r], ks[origin], vs[origin], m, num, den, r, origin)
+            RING_BLOCK_LAUNCHES["fwd", s, mask_of(r, origin)] += 1
         out.append(num / den)
     return torch.cat(out, dim=2)
 
@@ -992,7 +1058,7 @@ def phase_ring(config: demo.DemoConfig) -> dict:
     result, launches = {}, dict.fromkeys(COUNTERS, 0)
     for what, run in (
         (f"replayed {RING_RANKS}-rank ring", lambda q, k, v: replay_ring(q, k, v, RING_RANKS)),
-        ("ring_attention on an NCCL group of one", lambda q, k, v: demo.ring_attention(q, k, v, mesh, axis="seq")),
+        ("ring_attention on an NCCL group of one", lambda q, k, v: ring_of_one(q, k, v, mesh)),
     ):
         reset_counts()
         outs = [run(*qkv) for qkv in inputs]
@@ -1035,6 +1101,7 @@ def replay_ring_grad(q, k, v, dout, n: int) -> tuple:
         for j in range(n):
             origin = (r - j) % n
             ra.ring_step(qs[r], ks[origin], vs[origin], m, num, den, r, origin)
+            RING_BLOCK_LAUNCHES["fwd", s, mask_of(r, origin)] += 1
         stats.append((m, den, (dos[r].float() * (num / den)).sum(dim=-1, keepdim=True)))
     dq, dk, dv = ([torch.zeros((b, h, s, d), device=q.device) for _ in range(n)] for _ in range(3))
     for j in range(n):
@@ -1042,14 +1109,28 @@ def replay_ring_grad(q, k, v, dout, n: int) -> tuple:
             origin = (r - j) % n
             ra.ring_step_bwd(qs[r], ks[origin], vs[origin], dos[r], *stats[r], r, origin,
                              dq[r], dk[origin], dv[origin])
+            RING_BLOCK_LAUNCHES["bwd", s, mask_of(r, origin)] += 1
     return tuple(torch.cat(t, dim=2) for t in (dq, dk, dv))
+
+
+def ring_of_one(q, k, v, mesh) -> torch.Tensor:
+    """``demo.ring_attention`` over ``mesh``'s ``seq`` dim, a group of
+    one: its block steps, all on the diagonal, tallied by block."""
+    before = ra.launches
+    out = demo.ring_attention(q, k, v, mesh, axis="seq")
+    RING_BLOCK_LAUNCHES["fwd", q.shape[2], "diagonal"] += ra.launches - before
+    return out
 
 
 def ring_attention_grad(q, k, v, dout, mesh) -> tuple:
     """``backward()`` through ``demo.ring_attention`` over ``mesh``'s
-    ``seq`` dim: dq, dk, dv."""
+    ``seq`` dim, a group of one: dq, dk, dv; the backward's block steps
+    tallied by block."""
     live = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    demo.ring_attention(*live, mesh, axis="seq").backward(dout)
+    out = ring_of_one(*live, mesh)
+    before = ra.bwd_launches
+    out.backward(dout)
+    RING_BLOCK_LAUNCHES["bwd", q.shape[2], "diagonal"] += ra.bwd_launches - before
     return tuple(t.grad for t in live)
 
 
@@ -1248,9 +1329,16 @@ def main() -> None:
     total["cross_entropy_wide"] = wide["cross_entropy"] + wide["cross_entropy_bwd"]
     total["matmul_gelu_wide"] = wide["matmul_gelu"]
     total["matmul_gelu_bwd_wide"] = wide["matmul_gelu_bwd"]
+    print(json.dumps({"ring_block_launches": [
+        {"direction": d, "block": b, "mask": m, "launches": n}
+        for (d, b, m), n in sorted(RING_BLOCK_LAUNCHES.items())]}))
     for line in kernels:
-        line["launches"] = total[line["name"]]
-        if line["launches"] < 1:
+        # a ring row at one block: its launches at that block in the ring
+        # phases (the first row of each direction also carries the total)
+        if "block" in line:
+            line["block_launches"] = RING_BLOCK_LAUNCHES[tuple(line["block"])]
+        line["launches"] = total.get(line["name"], line.get("block_launches"))
+        if not line["launches"]:
             fail(f"{line['name']} was never launched on the main path")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

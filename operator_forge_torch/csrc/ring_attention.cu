@@ -34,8 +34,15 @@
 //   p  = exp(score - m) / den                 the block's probabilities
 //   dS = p * (dout . v - D) * scale           the transpose of "* scale"
 //   dq += sum_j dS_ij k_j,  dk_j += sum_i dS_ij q_i,  dv_j += sum_i p_ij dout_i
-// into f32 accumulators, in place.  The score is the forward's, with the
-// same FMA order.  A later block adds nothing: its blocks return at once
+// into f32 accumulators, in place, with the same roundings in both
+// kernels: the score's product by scale, the shift, expf, the division
+// (IEEE's in the row kernel; in the tiled kernel the quotient from a
+// refined reciprocal corrected by its residual, IEEE's or one f32 ulp
+// from it, without the slow path's branch) and dS's three steps, each
+// rounded.  The row kernel scores a pair with the forward's FMA order (four
+// chains over d); the tiled kernel with one FMA chain over d in ascending
+// order, for both roles.  No TF32: it keeps about 3 digits, and the sums
+// are held to 2e-5.  A later block adds nothing: its blocks return at once
 // and the accumulators keep their bits.
 //
 // Bound on an H100 SXM at the ring of DemoConfig()'s heads, seq 64 over 4
@@ -45,9 +52,13 @@
 // two products at the f32 rate outside the tensor cores, 0.016 us.  The
 // backward reads q, k, v and dout (262,144 B) and m, den and D (6,144 B),
 // and reads and writes dq, dk and dv (393,216 B): 661,504 B, 0.197 us,
-// against some 2.5 MFLOP of five products, 0.04 us.  Both are bound by
-// bytes, and in practice by one launch and the chain of dependent steps
-// inside it.
+// against some 2.6 MFLOP of five products, 0.04 us.  Both are bound by
+// bytes, and in practice by one launch.  The ring's gradient also runs the
+// backward at blocks of 64 to 4096 keys (chip_smoke.py's rows), where the
+// five products of 2 d FLOP a pair the mask leaves (s^2 earlier, s (s + 1)
+// / 2 on the diagonal) bound it by the f32 rate, 67 TFLOP/s: 0.00125 ms at
+// [1, 4, 256, 32] earlier, 0.0200 ms at [1, 4, 1024, 32] earlier, 0.160 ms
+// at [1, 4, 4096, 32] on the diagonal.
 //
 // Forward design: one warp per query row, so the chain of dependent work a
 // row needs runs in parallel over every row of the step: at the shape
@@ -70,16 +81,33 @@
 // the sums and p v, with the same FMA order and so the same bits, and
 // takes a wide head's output columns 128 at a time.
 //
-// Backward design: two roles in one launch.  The first half of the grid
-// gives each query row a warp, which sums dq over the keys it sees; the
-// second half gives each key row a warp, which sums dk and dv over the
-// queries that see it.  A block of kWarps rows stages the other side's
-// rows chunk by chunk (keys and values for queries; queries, dout and the
-// queries' m, den and D for keys); lane j computes the score, p, dout . v
-// and dS of the pairs j, j + 32, ... of the chunk into the warp's buffers,
-// and then lane c adds p and dS times the staged rows into the row's f32
-// sums of columns c, c + 32, ..., which sit in shared memory, so a head of
-// any width up to kMaxHeadDim takes one pass.  Each sum runs over the
+// Backward design: two roles in one launch.  Query rows sum dq over the
+// keys they see; key rows sum dk and dv over the queries that see them; so
+// no output has two writers and no sum needs an atomic.  Blocks of at
+// least kTileMinSeq keys with heads of up to kTileHeadDim take the tiled
+// kernel, which shares each staged chunk of the other side among a tile of
+// 32 or 64 rows and each shared load among several FMAs: a thread holds 4
+// x 4 pairs' scores and dout . v in registers, 16-byte loads feeding 16
+// FMAs of each, forms p and dS there, passes them through shared memory,
+// and adds them times the other side's rows into its 4 rows' sums of its
+// columns, which stay in registers over every chunk.  Chunks of 64 rows
+// arrive by cp.async into two buffers, the next in flight while this one
+// is used; only the chunks the causal mask leaves are staged.  The tile's
+// height goes by grid size (bwd_tile_rows): 64 rows where their grid
+// gives every SM two blocks, else 32; 64-row tiles of a diagonal block go
+// in pairs (t with tiles - 1 - t), so that every block does the same work.
+// Where long tiles still leave the card short of blocks (bwd_parts), the
+// two blocks of a cluster share each tile's chunks, and the second's sums
+// reach the first through distributed shared memory, which adds them
+// after its own.  Its launch bounds ask for as many blocks an SM as shared
+// memory holds.
+// Shorter blocks and wider heads go to the row kernel: a warp a row (the first half of the grid query
+// rows, the second key rows), a block of kWarps rows staging the other
+// side chunk by chunk; lane j computes the score, p, dout . v and dS of the
+// pairs j, j + 32, ... of the chunk into the warp's buffers, and then lane
+// c adds p and dS times the staged rows into the row's f32 sums of columns
+// c, c + 32, ..., which sit in shared memory, so a head of any width up to
+// kMaxHeadDim takes one pass.  Each sum of either kernel runs over the
 // other side in ascending order from 0 and is added to its accumulator
 // once at the end.
 //
@@ -91,9 +119,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kChunk = 128;         // most keys or values staged at a time
 constexpr int kWarps = 4;           // rows per block
@@ -110,7 +144,9 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src, int
   of::stage_rows(dst, src, hd, r0, n, hd, ld, vec);
 }
 
+using of::div_by;
 using of::dot;
+using of::recip;
 using of::widen;
 
 // the keys staged at a time, for a block whose fixed shared memory takes
@@ -492,6 +528,353 @@ ring_step_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- backward, tiled ----------------------------------------------------
+
+constexpr int kTileOthers = 64;     // others (keys, or queries) staged a chunk
+constexpr int kTileHeadDim = 128;   // the widest head of the tiled kernel
+
+// acc + x . y, one FMA chain in ascending order
+__device__ __forceinline__ float dot4(float4 x, float4 y, float acc) {
+  return fmaf(x.w, y.w, fmaf(x.z, y.z, fmaf(x.y, y.y, fmaf(x.x, y.x, acc))));
+}
+
+// kNc (2, 4 or 8) consecutive floats of shared memory, 8- or 16-byte aligned
+template <int kNc>
+__device__ __forceinline__ void load_cols(float (&out)[kNc], const float* p) {
+  if constexpr (kNc % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < kNc; e += 4) {
+      const float4 w = *reinterpret_cast<const float4*>(p + e);
+      out[e] = w.x, out[e + 1] = w.y, out[e + 2] = w.z, out[e + 3] = w.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kNc; e += 2) {
+      const float2 w = *reinterpret_cast<const float2*>(p + e);
+      out[e] = w.x, out[e + 1] = w.y;
+    }
+  }
+}
+
+// Stage rows [r0, r0 + n) of one head's [s, hd] plane into dst [kRows][ld]
+// as f32: 16-byte cp.async copies for f32 rows where vec, else loads that
+// widen; rows n .. kRows - 1 become zeros.  Columns hd .. ld stay as they
+// are (zeros, set once).  The caller commits and waits.
+template <typename T, int kRows>
+__device__ __forceinline__ void stage_tile(float* dst, const T* __restrict__ src, int r0, int n,
+                                           int hd, int ld, bool vec) {
+  bool copied = false;
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec) {
+      const int per_row = hd / 4;
+      for (int i = threadIdx.x; i < n * per_row; i += blockDim.x) {
+        const int j = i / per_row, c = (i - j * per_row) * 4;
+        of::cp_async16(dst + j * ld + c, src + (size_t)(r0 + j) * hd + c);
+      }
+      copied = true;
+    }
+  }
+  if (!copied) of::stage_rows(dst, src, hd, r0, n, hd, ld, vec);
+  for (int i = threadIdx.x; i < (kRows - n) * hd; i += blockDim.x) {
+    const int j = n + i / hd;
+    dst[j * ld + i % hd] = 0.0f;
+  }
+}
+
+// The tiled kernel's shared memory with `stages` buffers of the other side,
+// in bytes
+__host__ __device__ constexpr size_t tiled_smem(int kTy, int kNc, int stages) {
+  return sizeof(float) * ((size_t)2 * 4 * kTy * (16 * kNc + 4) +
+                          (size_t)stages * 2 * kTileOthers * (16 * kNc + 4) +
+                          (size_t)2 * kTileOthers * (4 * kTy + 4));
+}
+
+// The blocks of the tiled kernel an SM's shared memory holds (233,472
+// bytes, 1 KB of it kept a block): its launch bounds ask for them, so that
+// registers never cut the warps an SM keeps in flight first
+__host__ __device__ constexpr int tiled_resident(int kTy, int kNc) {
+  return (int)(233472 / ((tiled_smem(kTy, kNc, 2) <= (size_t)of::kMaxSmemBytes
+                              ? tiled_smem(kTy, kNc, 2) : tiled_smem(kTy, kNc, 1)) + 1024));
+}
+
+// One tile of the tiled backward step: kRows = 4 * kTy rows from r0, query
+// rows (dq) or key rows (dk, dv), against the other side in chunks of
+// kTileOthers rows staged through `stages` (1 or 2) cp.async buffers.
+// Thread (ty, tx) holds the scores and dout . v of its own rows ty + kTy a
+// and the chunk's others tx + 16 b (a, b < 4), 16 pairs, in registers,
+// each an FMA chain over d in ascending order fed by 16-byte shared loads;
+// writes dS (and, for key rows, p) to shared memory; and then adds dS times
+// the other side's rows (or dS^T q and p^T dout) into its 4 x kNc outputs,
+// columns tx kNc .., in registers, in ascending order of the other side.
+// Returns at once where the mask leaves the tile no pair.  With more than
+// one of `parts` (the blocks of a cluster), part p takes the p-th run of
+// whole chunks; the parts' sums reach part 0 through distributed shared
+// memory, and part 0 adds them to its own in rank order before it writes.
+template <typename T, int kTy, int kNc>
+__device__ __forceinline__ void bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
+                                         const T* __restrict__ v, const T* __restrict__ dout,
+                                         const float* __restrict__ m,
+                                         const float* __restrict__ den,
+                                         const float* __restrict__ big_d, float* __restrict__ dq,
+                                         float* __restrict__ dk, float* __restrict__ dv,
+                                         float* smem, int s, int hd, long long lag, bool vec,
+                                         int stages, bool keys, size_t plane, int r0,
+                                         int part, int parts) {
+  constexpr int kRows = 4 * kTy;         // own rows of a tile
+  constexpr int kN = kTileOthers;        // others of a chunk
+  constexpr int kW = 16 * kNc;           // staged columns, zeros past hd
+  constexpr int kLd = kW + 4;            // row stride: 8 rows 4 banks apart
+  constexpr int kLdB = kRows + 4;        // row stride of the dS and p buffers
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // a warp holds 4 consecutive ty by 8 consecutive tx
+  const int ty = (warp >> 1) * 4 + (lane >> 3), tx = (warp & 1) * 8 + (lane & 7);
+  const int rows = min(kRows, s - r0);
+  // query i sees key j when j <= lag + i: the others the tile pairs with
+  const int o_begin = keys ? (int)min((long long)s, max(0LL, r0 - lag)) : 0;
+  const int o_end = keys ? s : (int)max(0LL, min((long long)s, lag + r0 + rows));
+  if (o_begin >= o_end) return;  // a later block: the accumulators stay as they are
+  // this part's others: [lo, hi), whole chunks, the parts' in rank order
+  const long long per = (long long)((o_end - o_begin + kN - 1) / kN + parts - 1) / parts * kN;
+  const int lo = (int)min((long long)o_end, o_begin + part * per);
+  const int hi = (int)min((long long)o_end, o_begin + (part + 1) * per);
+
+  float* own_x = smem;                    // [kRows][kLd] q, or k
+  float* own_y = own_x + kRows * kLd;     // [kRows][kLd] dout, or v
+  float* other = own_y + kRows * kLd;     // [stages][2][kN][kLd] k and v, or q and dout
+  float* ds_buf = other + stages * 2 * kN * kLd;  // [kN][kLdB] dS, own rows in slot order
+  float* p_buf = ds_buf + kN * kLdB;              // [kN][kLdB] p (key rows)
+
+  const float scale = 1.0f / sqrtf((float)hd);
+  const size_t stat = plane * s;
+  float acc0[4][kNc], acc1[4][kNc];  // dq, or dk and dv
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int e = 0; e < kNc; ++e) acc0[a][e] = acc1[a][e] = 0.0f;
+  if (lo < hi) {
+    // the staged rows' columns past hd are zeros
+    if (hd < kW)
+      for (int i = tid; i < (2 * kRows + 2 * stages * kN) * (kW - hd); i += blockDim.x) {
+        const int row = i / (kW - hd);
+        own_x[row * kLd + hd + i % (kW - hd)] = 0.0f;
+      }
+    const size_t base = plane * s * hd;
+    const T* a_src = keys ? q : k;
+    const T* b_src = keys ? dout : v;
+    stage_tile<T, kRows>(own_x, (keys ? k : q) + base, r0, rows, hd, kLd, vec);
+    stage_tile<T, kRows>(own_y, (keys ? v : dout) + base, r0, rows, hd, kLd, vec);
+    stage_tile<T, kN>(other, a_src + base, lo, min(kN, hi - lo), hd, kLd, vec);
+    stage_tile<T, kN>(other + kN * kLd, b_src + base, lo, min(kN, hi - lo), hd, kLd, vec);
+    of::cp_async_commit();
+
+    // the thread's 4 query rows' m, den (and its reciprocal) and D: its own
+    // rows ty + kTy a, loaded here, for query tiles; for key tiles the
+    // chunk's others tx + 16 b, loaded with each chunk
+    float qm[4], qden[4], qinv[4], qd[4];
+    const auto load_stats = [&](int first, int stride, int end) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int i = first + stride * a;
+        const bool live = i < end;
+        qm[a] = live ? m[stat + i] : 0.0f;
+        qden[a] = live ? den[stat + i] : 1.0f;
+        qd[a] = live ? big_d[stat + i] : 0.0f;
+        qinv[a] = recip(qden[a]);
+      }
+    };
+    if (!keys) load_stats(r0 + ty, kTy, s);
+    const int hd4 = (hd + 3) & ~3;
+    const int n_chunks = (hi - lo + kN - 1) / kN;
+
+    for (int chunk = 0; chunk < n_chunks; ++chunk) {
+      const int o0 = lo + chunk * kN;
+      const int n = min(kN, hi - o0);
+      // with two buffers the next chunk's copies fly during this one
+      if (stages == 2 && chunk + 1 < n_chunks) {
+        float* next = other + ((chunk + 1) & 1) * 2 * kN * kLd;
+        const int n_next = min(kN, hi - o0 - kN);
+        stage_tile<T, kN>(next, a_src + base, o0 + kN, n_next, hd, kLd, vec);
+        stage_tile<T, kN>(next + kN * kLd, b_src + base, o0 + kN, n_next, hd, kLd, vec);
+      }
+      of::cp_async_commit();
+      if (keys) load_stats(o0 + tx, 16, hi);
+      if (stages == 2)
+        of::cp_async_wait<1>();  // all but the next chunk's copies
+      else
+        of::cp_async_wait<0>();
+      __syncthreads();
+      const float* a_rows = other + (chunk & (stages - 1)) * 2 * kN * kLd;
+      const float* b_rows = a_rows + kN * kLd;
+
+      // scores (own x . other a) and dout . v (own y . other b) of the
+      // thread's 16 pairs
+      float sc[4][4], dp[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) sc[a][b] = dp[a][b] = 0.0f;
+      // a step at a time: unrolled, the loop costs registers (so blocks an
+      // SM) and gained no time on the card
+#pragma unroll 1
+      for (int c = 0; c < hd4; c += 4) {
+        float4 x[4], y[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          x[a] = *reinterpret_cast<const float4*>(own_x + (ty + kTy * a) * kLd + c);
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          y[b] = *reinterpret_cast<const float4*>(a_rows + (tx + 16 * b) * kLd + c);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) sc[a][b] = dot4(x[a], y[b], sc[a][b]);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          x[a] = *reinterpret_cast<const float4*>(own_y + (ty + kTy * a) * kLd + c);
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          y[b] = *reinterpret_cast<const float4*>(b_rows + (tx + 16 * b) * kLd + c);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) dp[a][b] = dot4(x[a], y[b], dp[a][b]);
+      }
+
+      // p and dS of the pairs the mask leaves, zeros elsewhere, into the
+      // buffers: other o's row holds own row ty + kTy a at slot 4 ty + a
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int o = o0 + tx + 16 * b;
+        float pv[4], dsv[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int r = r0 + ty + kTy * a;
+          const long long i = keys ? o : r, j = keys ? r : o;
+          const bool live = r < s && o < hi && j <= lag + i;
+          // the query's stats (constant indices: the arrays stay in registers)
+          const float mi = keys ? qm[b] : qm[a], di = keys ? qd[b] : qd[a];
+          const float p = div_by(expf(__fmul_rn(sc[a][b], scale) - mi), keys ? qden[b] : qden[a],
+                                 keys ? qinv[b] : qinv[a]);
+          pv[a] = live ? p : 0.0f;
+          dsv[a] = live ? __fmul_rn(__fmul_rn(p, __fsub_rn(dp[a][b], di)), scale) : 0.0f;
+        }
+        const int at = (tx + 16 * b) * kLdB + 4 * ty;
+        *reinterpret_cast<float4*>(ds_buf + at) = make_float4(dsv[0], dsv[1], dsv[2], dsv[3]);
+        if (keys) *reinterpret_cast<float4*>(p_buf + at) = make_float4(pv[0], pv[1], pv[2], pv[3]);
+      }
+      __syncthreads();
+
+      // dq += dS k, or dk += dS^T q and dv += p^T dout, over the chunk's
+      // others in ascending order
+      for (int o = 0; o < n; ++o) {
+        const float4 d4 = *reinterpret_cast<const float4*>(ds_buf + o * kLdB + 4 * ty);
+        const float dsv[4] = {d4.x, d4.y, d4.z, d4.w};
+        float ar[kNc];
+        load_cols<kNc>(ar, a_rows + o * kLd + tx * kNc);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int e = 0; e < kNc; ++e) acc0[a][e] = fmaf(dsv[a], ar[e], acc0[a][e]);
+        if (keys) {
+          const float4 p4 = *reinterpret_cast<const float4*>(p_buf + o * kLdB + 4 * ty);
+          const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+          float br[kNc];
+          load_cols<kNc>(br, b_rows + o * kLd + tx * kNc);
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int e = 0; e < kNc; ++e) acc1[a][e] = fmaf(pv[a], br[e], acc1[a][e]);
+        }
+      }
+      __syncthreads();  // every thread is done with this chunk's buffers
+      if (stages == 1 && chunk + 1 < n_chunks) {
+        const int n_next = min(kN, hi - o0 - kN);
+        stage_tile<T, kN>(other, a_src + base, o0 + kN, n_next, hd, kLd, vec);
+        stage_tile<T, kN>(other + kN * kLd, b_src + base, o0 + kN, n_next, hd, kLd, vec);
+      }
+    }
+  }
+
+  if (parts > 1) {
+    // the other parts' sums, thread by thread, in their shared memory (free
+    // now), which part 0 adds to its own in rank order
+    constexpr int kPer = 2 * 4 * kNc;
+    cg::cluster_group cluster = cg::this_cluster();
+    if (part > 0)
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int e = 0; e < kNc; ++e) {
+          smem[tid * kPer + a * kNc + e] = acc0[a][e];
+          smem[tid * kPer + (4 + a) * kNc + e] = acc1[a][e];
+        }
+    cluster.sync();
+    if (part == 0)
+      for (int from = 1; from < parts; ++from) {
+        const float* theirs = cluster.map_shared_rank(smem, from) + tid * kPer;
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int e = 0; e < kNc; ++e) {
+            acc0[a][e] = __fadd_rn(acc0[a][e], theirs[a * kNc + e]);
+            acc1[a][e] = __fadd_rn(acc1[a][e], theirs[(4 + a) * kNc + e]);
+          }
+      }
+    cluster.sync();  // the parts' shared memory outlives part 0's reads
+    if (part > 0) return;
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = r0 + ty + kTy * a;
+    if (r >= s) continue;
+#pragma unroll
+    for (int e = 0; e < kNc; ++e) {
+      const int c = tx * kNc + e;
+      if (c >= hd) continue;
+      const size_t at = (stat + r) * hd + c;
+      if (keys) {
+        dk[at] = __fadd_rn(dk[at], acc0[a][e]);
+        dv[at] = __fadd_rn(dv[at], acc1[a][e]);
+      } else {
+        dq[at] = __fadd_rn(dq[at], acc0[a][e]);
+      }
+    }
+  }
+}
+
+// The backward step on register tiles, for heads of up to kTileHeadDim,
+// in blocks of 16 * kTy threads.  Block b of the grid is part b % parts of
+// unit u = b / parts, which takes role u % 2 (0: query rows) of plane u / 2
+// % planes and tile t = u / 2 / planes; where `paired` (a diagonal block)
+// also tile tiles - 1 - t, so that its work under the causal mask is the
+// same for every t.
+template <typename T, int kTy, int kNc>
+__global__ void __launch_bounds__(kTy * 16, tiled_resident(kTy, kNc))
+ring_step_bwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ dout,
+                           const float* __restrict__ m, const float* __restrict__ den,
+                           const float* __restrict__ big_d, float* __restrict__ dq,
+                           float* __restrict__ dk, float* __restrict__ dv, int s, int hd,
+                           int q_block, int k_block, bool vec, int tiles, unsigned int planes,
+                           int stages, bool paired, int parts) {
+  extern __shared__ __align__(16) float tile_smem[];
+  const int part = (int)(blockIdx.x % parts);
+  const unsigned int unit = blockIdx.x / parts;
+  const bool keys = unit & 1;
+  const unsigned int rank = unit >> 1;
+  const size_t plane = rank % planes;
+  const int t = (int)(rank / planes);
+  const long long lag = ((long long)q_block - k_block) * s;
+  bwd_tile<T, kTy, kNc>(q, k, v, dout, m, den, big_d, dq, dk, dv, tile_smem, s, hd, lag, vec,
+                        stages, keys, plane, t * 4 * kTy, part, parts);
+  if (paired && tiles - 1 - t != t) {
+    __syncthreads();
+    bwd_tile<T, kTy, kNc>(q, k, v, dout, m, den, big_d, dq, dk, dv, tile_smem, s, hd, lag, vec,
+                          stages, keys, plane, (tiles - 1 - t) * 4 * kTy, part, parts);
+  }
+}
+
 // ---- launches -----------------------------------------------------------
 
 // the grid's row blocks a plane, or 0 where the grid would be too large
@@ -543,28 +926,130 @@ int launch(const void* q, const void* k, const void* v, void* m, void* num,
   return cudaGetLastError();
 }
 
+// The tiled backward kernel's rows a tile for a step of `planes` heads of
+// s rows and hd columns, or 0 where the row kernel takes the step: a head
+// wider than kTileHeadDim, or a block of fewer than kTileMinSeq rows, where
+// the row kernel's many small blocks finish sooner.  Otherwise 64 rows,
+// which share each staged chunk among more rows, where their grid gives
+// every SM two blocks (kFullGrid) and so hides the latency of each; else 32
+// rows, whose grid of twice the blocks fills the card sooner.  64-row tiles
+// go in pairs on the diagonal (`paired`), so that each block's work is the
+// same and the grid ends in one wave; 32-row tiles never do, since halving
+// a grid that does not fill the card costs more than the imbalance.
+constexpr int kTileMinSeq = 64;
+constexpr long long kFullGrid = 256;
+
+bool paired(int rows, bool diagonal) { return diagonal && rows == 64; }
+
+// blocks of the tiled kernel's grid: two roles, each a block a tile or a
+// pair of tiles
+long long tiled_blocks(long long planes, int s, int rows, bool diagonal) {
+  const long long tiles = (s + rows - 1) / rows;
+  return 2 * planes * (paired(rows, diagonal) ? (tiles + 1) / 2 : tiles);
+}
+
+int bwd_tile_rows(long long planes, int s, int hd, bool diagonal) {
+  if (hd > kTileHeadDim || s < kTileMinSeq) return 0;
+  return tiled_blocks(planes, s, 64, diagonal) >= kFullGrid ? 64 : 32;
+}
+
+// The blocks that share each tile's chunks (a cluster): two where tiles
+// are long (at least kSplitChunks chunks) and the grid of whole tiles
+// leaves the card short of blocks, so that no tile's walk of its chunks,
+// one after another, sets the launch's time alone; an unpaired diagonal
+// block's grid counts half, as its tiles' work averages half the
+// longest's.  Shorter tiles leave a part too little to do, and four parts
+// cost more in their cluster than they save.
+constexpr int kSplitChunks = 4;
+
+int bwd_parts(long long planes, int s, int rows, bool diagonal) {
+  if (s < kSplitChunks * kTileOthers) return 1;
+  const long long blocks = tiled_blocks(planes, s, rows, diagonal);
+  return (diagonal && !paired(rows, diagonal) ? blocks / 2 : blocks) < kFullGrid ? 2 : 1;
+}
+
+struct BwdArgs {
+  const void *q, *k, *v, *dout, *m, *den, *big_d;
+  void *dq, *dk, *dv;
+  int s, hd, q_block, k_block;
+  bool vec;
+  cudaStream_t stream;
+};
+
+template <typename T, int kTy, int kNc>
+int launch_tiled(const BwdArgs& a, long long planes) {
+  constexpr int kRows = 4 * kTy;
+  const long long tiles = (a.s + kRows - 1) / kRows;
+  const bool diagonal = a.q_block == a.k_block;
+  const int parts = bwd_parts(planes, a.s, kRows, diagonal);
+  const long long blocks = parts * tiled_blocks(planes, a.s, kRows, diagonal);
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  const int stages = tiled_smem(kTy, kNc, 2) <= (size_t)of::kMaxSmemBytes ? 2 : 1;
+  const auto kernel = ring_step_bwd_tiled_kernel<T, kTy, kNc>;
+  const cudaError_t err = of::set_attribute_once(
+      reinterpret_cast<const void*>(kernel), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      of::kMaxSmemBytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = parts;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned int)blocks);
+  config.blockDim = dim3(16 * kTy);
+  config.dynamicSmemBytes = tiled_smem(kTy, kNc, stages);
+  config.stream = a.stream;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  const cudaError_t launched = cudaLaunchKernelEx(
+      &config, kernel, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), static_cast<const float*>(a.m),
+      static_cast<const float*>(a.den), static_cast<const float*>(a.big_d),
+      static_cast<float*>(a.dq), static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.s, a.hd,
+      a.q_block, a.k_block, a.vec, (int)tiles, (unsigned int)planes, stages,
+      paired(kRows, diagonal), parts);
+  return launched != cudaSuccess ? launched : cudaGetLastError();
+}
+
+template <typename T, int kTy>
+int launch_tiled_width(const BwdArgs& a, long long planes) {
+  if (a.hd <= 32) return launch_tiled<T, kTy, 2>(a, planes);
+  if (a.hd <= 64) return launch_tiled<T, kTy, 4>(a, planes);
+  return launch_tiled<T, kTy, 8>(a, planes);
+}
+
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* m,
                const void* den, const void* big_d, void* dq, void* dk, void* dv, int b, int h,
                int s, int hd, int q_block, int k_block, void* stream) {
+  if (!valid(b, h, s, hd, q_block, k_block)) return cudaErrorInvalidValue;
+  const bool vec = (hd * (int)sizeof(T)) % 16 == 0 && of::aligned16(q, k, v, dout);
+  const BwdArgs args{q,  k,  v, dout, m,       den,     big_d, dq,
+                     dk, dv, s, hd,   q_block, k_block, vec,   static_cast<cudaStream_t>(stream)};
+  const long long planes = (long long)b * h;
+  switch (bwd_tile_rows(planes, s, hd, q_block == k_block)) {
+    case 64: return launch_tiled_width<T, 16>(args, planes);
+    case 32: return launch_tiled_width<T, 8>(args, planes);
+    default: break;
+  }
   const int row_blocks = row_blocks_of(b, h, s, 2);
-  if (!valid(b, h, s, hd, q_block, k_block) || row_blocks == 0) return cudaErrorInvalidValue;
+  if (row_blocks == 0) return cudaErrorInvalidValue;
   const cudaError_t err = of::set_attribute_once(
       reinterpret_cast<const void*>(ring_step_bwd_kernel<T>),
       cudaFuncAttributeMaxDynamicSharedMemorySize, of::kMaxSmemBytes);
   if (err != cudaSuccess) return err;
-  const bool vec = (hd * (int)sizeof(T)) % 16 == 0 && of::aligned16(q, k, v, dout);
   const int chunk = chunk_for(s, 4 * kWarps * hd, 2 * (hd + 1) + 2 * kWarps + 3);
   if (chunk < 1) return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((size_t)2 * chunk * (hd + 1) + (size_t)4 * kWarps * hd +
                                        (size_t)(2 * kWarps + 3) * chunk);
-  const unsigned int planes = (unsigned int)b * h;
-  ring_step_bwd_kernel<T><<<2 * row_blocks * planes, 32 * kWarps, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
+  ring_step_bwd_kernel<T><<<2 * row_blocks * (unsigned int)planes, 32 * kWarps, smem,
+                            args.stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(m), static_cast<const float*>(den),
       static_cast<const float*>(big_d), static_cast<float*>(dq), static_cast<float*>(dk),
-      static_cast<float*>(dv), s, hd, q_block, k_block, vec, chunk, row_blocks, planes);
+      static_cast<float*>(dv), s, hd, q_block, k_block, vec, chunk, row_blocks,
+      (unsigned int)planes);
   return cudaGetLastError();
 }
 

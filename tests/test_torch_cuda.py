@@ -11,6 +11,7 @@ import math
 import os
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
@@ -435,6 +436,28 @@ RING_BWD_SHAPES = [
     ((1, 4, 256, 32), torch.float32), ((2, 3, 17, 16), torch.float32),
     ((2, 3, 17, 16), torch.bfloat16), ((1, 4, 2048, 32), torch.float32),
     ((1, 2, 64, 160), torch.float32), ((65536, 1, 2, 4), torch.float32),
+    # the tiled kernel's edges, one under, at and one over each: its first
+    # block (64 keys), three 32-row tiles (96) and two 64-row chunks (128)
+    # on 32-row tiles, two 64-row tiles (128) on 64-row tiles (128 heads,
+    # whose diagonal blocks pair tiles, an odd count at 129)
+    ((1, 1, 63, 32), torch.float32), ((1, 1, 64, 32), torch.float32),
+    ((1, 1, 65, 32), torch.float32), ((1, 2, 95, 32), torch.float32),
+    ((1, 2, 96, 32), torch.float32), ((1, 2, 97, 32), torch.float32),
+    ((1, 2, 127, 32), torch.float32), ((1, 2, 128, 32), torch.float32),
+    ((1, 2, 129, 32), torch.float32), ((16, 8, 127, 32), torch.float32),
+    ((16, 8, 128, 32), torch.float32), ((16, 8, 129, 32), torch.float32),
+    # a tile's chunks shared by the two blocks of a cluster from 4 chunks
+    # (256 keys; 257 splits 3 and 2), also on wide and bf16 heads
+    ((1, 1, 255, 32), torch.float32), ((1, 1, 256, 32), torch.float32),
+    ((1, 1, 257, 32), torch.float32), ((1, 1, 300, 100), torch.float32),
+    ((1, 2, 300, 48), torch.bfloat16),
+    # heads on the tiled kernel: not a multiple of 4 (no 16-byte copies),
+    # bf16 (widened as staged), odd, the widest (128, and on 64-row tiles,
+    # whose other side then has one buffer) and one past it (the row kernel)
+    ((1, 2, 150, 20), torch.float32), ((1, 2, 160, 64), torch.bfloat16),
+    ((2, 2, 100, 33), torch.bfloat16), ((1, 2, 128, 128), torch.float32),
+    ((8, 8, 130, 100), torch.float32), ((16, 8, 128, 128), torch.float32),
+    ((1, 2, 128, 129), torch.float32),
 ]
 
 
@@ -488,16 +511,29 @@ def test_ring_attention_gradient_matches_dense(nccl_one, shape):
         assert grads_close(g, w)
 
 
+# How long a profiled call waits inside the profiler's window at each end.
+# The profiler keeps only device activities whose times, converted to the
+# host's clock, fall inside its window; on the card that conversion can put
+# a kernel's start before the launch call that made it, and a call made as
+# soon as the window opens then falls outside it, leaving the trace empty.
+# ``python -m operator_forge_torch.profile_window`` counts such traces with
+# and without a margin.
+PROFILE_MARGIN_S = 0.01
+
+
 def _cuda_kernels(fn) -> list[str]:
     """Names of the device activities the profiler records in one call of
     ``fn``, after one call outside the trace (the build, the first
-    launch)."""
+    launch); the call runs ``PROFILE_MARGIN_S`` inside the profiler's
+    window at each end."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
     return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
@@ -604,6 +640,26 @@ def test_ring_step_bwd_is_one_kernel(cuda, case):
     inputs, my, origin, acc = ring_bwd_inputs((8, 4, 16, 32), case, cuda)
     kernels = _cuda_kernels(lambda: ra.ring_step_bwd(*inputs, my, origin, *acc))
     assert len(kernels) == 1, kernels
+
+
+@pytest.mark.parametrize("shape, case, kernel", [
+    ((8, 4, 16, 32), "earlier", "ring_step_bwd_kernel<float>"),
+    ((1, 1, 63, 32), "diagonal", "ring_step_bwd_kernel<float>"),
+    ((1, 1, 64, 32), "earlier", "ring_step_bwd_tiled_kernel<float, 8, 2>"),
+    ((1, 4, 1024, 32), "diagonal", "ring_step_bwd_tiled_kernel<float, 8, 2>"),
+    ((1, 4, 2048, 32), "earlier", "ring_step_bwd_tiled_kernel<float, 16, 2>"),
+    ((1, 4, 4096, 32), "diagonal", "ring_step_bwd_tiled_kernel<float, 16, 2>"),
+    ((2, 2, 100, 33), "earlier", "ring_step_bwd_tiled_kernel<float, 8, 4>"),
+    ((16, 8, 128, 128), "diagonal", "ring_step_bwd_tiled_kernel<float, 16, 8>"),
+    ((1, 2, 128, 129), "earlier", "ring_step_bwd_kernel<float>"),
+])
+def test_ring_step_bwd_path_by_shape(cuda, shape, case, kernel):
+    """Which kernel a shape takes: the row kernel below 64 keys and past
+    heads of 128; tiles of 32 rows; 64 rows where their grid (pairs of
+    tiles on the diagonal) has 256 blocks; 2, 4 or 8 columns a thread."""
+    inputs, my, origin, acc = ring_bwd_inputs(shape, case, cuda)
+    kernels = _cuda_kernels(lambda: ra.ring_step_bwd(*inputs, my, origin, *acc))
+    assert len(kernels) == 1 and kernel in kernels[0], kernels
 
 
 def _slices_close(got, want_of, rows: int, check) -> None:

@@ -143,14 +143,26 @@ def _block_grads(case, shape=(2, 3, 17, 16), seed=0):
     return (dq, dk, dv), want
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_ring_step_bwd_ref_matches_jax(case):
+# the backward step's shapes: a ragged block, and blocks at and past the
+# card kernel's edges (its first tiled block, and a 64-row chunk, of 64
+# rows; two chunks and two rows past them; a tile whose 5 chunks two blocks
+# share) and a head on its row kernel (wider than the tiled kernel's 128)
+BWD_SHAPES = [(2, 3, 17, 16), (1, 2, 64, 32), (1, 2, 65, 32), (1, 1, 130, 32), (1, 1, 257, 32),
+              (1, 1, 33, 160)]
+
+
+@pytest.mark.parametrize(
+    "case, shape",
+    [pytest.param(case, shape, id=case if shape == BWD_SHAPES[0] else f"{case}-{'x'.join(map(str, shape))}")
+     for shape in BWD_SHAPES for case in sorted(CASES)],
+)
+def test_ring_step_bwd_ref_matches_jax(case, shape):
     """Within rtol 1e-5 and atol 2e-6 of ``jax.vjp`` of the reference's
     step arithmetic (measured 6.0e-7 against gradients up to 3.5): f32,
     sums in another order, and JAX's gradient also passes through the
     block max and the shift, which cancel exactly only without rounding.
     A later block adds nothing."""
-    got, want = _block_grads(case)
+    got, want = _block_grads(case, shape)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=2e-6, err_msg=name)
