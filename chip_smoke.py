@@ -31,7 +31,10 @@ Phases, each of which exits non-zero on a failed check:
       backward at each edge of its tiled kernel) and timed at every block
       the ring phases launch them at (``RING_TIMED``, ``RING_BWD_TIMED``),
       each beside SDPA (its backward op) under the same mask, each bound
-      counting the pairs the mask leaves.  Then each kernel past its
+      counting the pairs the mask leaves.  The kernels that only shapes off
+      the main path reach (heads of 256: attention's rows kernels, the ring
+      step's long kernel and its backward's row kernel) are checked and
+      timed the same way (``second_path_rows``).  Then each kernel past its
       former cap (``domain_checks``);
   (d) serve requests: ``entry()``'s forward on seeded token batches, each
       checked against the same forward on the CPU (plain versions), with
@@ -50,13 +53,14 @@ Phases, each of which exits non-zero on a failed check:
       the CPU;
   (g) ring attention: the 4-rank ring's schedule replayed in one process
       (at step j rank r holds block (r - j) % 4, every block step through
-      the kernel), and the real ``ring_attention`` on the group of one,
-      each against ``dense_causal_attention``; the replay checks the
-      kernel and the merge, not NCCL.  Then the ring's gradient the same
-      two ways (the replay with a backward schedule of its own), against
-      autograd of ``dense_causal_attention`` at [8, 4, 64, 32],
-      [1, 4, 1024, 32] and [1, 4, 4096, 32], with n backward steps a rank
-      for each backward;
+      the kernel; a 2-rank ring at seq 8192, whose blocks of 4096 keys
+      include an earlier one), and the real ``ring_attention`` on the
+      group of one, each against ``dense_causal_attention``; the replay
+      checks the kernel and the merge, not NCCL.  Then the ring's
+      gradient the same two ways (the replay with a backward schedule of
+      its own), against autograd of ``dense_causal_attention`` at
+      [8, 4, 64, 32], [1, 4, 1024, 32] and [1, 4, 4096, 32], with n
+      backward steps a rank for each backward;
   (h) the sharded train step on the (1, 1) mesh at ``DemoConfig()``, 3
       steps with per-step launch counts, the first against ``train_step``
       on the same parameters and tokens; ``run_dryrun(1)`` in this process
@@ -64,8 +68,9 @@ Phases, each of which exits non-zero on a failed check:
   (i) print the ring phases' launches by block and mask, then
       ``{"kernels": [...]}``, launches summed over (d), (e), (e'), (g) and
       (h) (for the ``_wide`` rows, over (e'); for a ring row at one block,
-      its launches at that block and mask in (g)), then, last, the device
-      line.
+      its launches at that block and mask in (g); the second paths went on
+      a line of their own in (c), with no launches on the main path), then,
+      last, the device line.
 It imports nothing of JAX: the card's machine has none.
 """
 
@@ -409,12 +414,34 @@ def mlp_bwd_row(dy, w2, h_pre, name: str, reps: int = 100) -> dict:
     )
 
 
-def backward_rows(inputs: dict) -> list[dict]:
-    """The train step's kernels: the three backwards and cross entropy."""
-    rows = []
+def attention_row(qkv, n_heads: int, name: str, reps: int = 100) -> dict:
+    """Attention's forward: within 2 bf16 ulps of the output's magnitude
+    (the kernel sums in another order than cuBLAS before each bf16
+    rounding), timed beside SDPA, causal."""
+    b, s, three_d = qkv.shape
+    d = three_d // 3
+    hd = d // n_heads
+    got = attention.causal_attention_fwd(qkv, n_heads).float()
+    want = attention.causal_attention_ref(qkv, n_heads).float()
+    q, k, v = qkv.view(b, s, 3, n_heads, hd).permute(2, 0, 3, 1, 4)
+    return dict(
+        name=name, shape=[b, s, n_heads, hd], route="cuda",
+        source="operator_forge_torch/csrc/causal_attention.cu",
+        replaces="operator_forge/tpu/demo.py:86", reps=reps,
+        fn=lambda: attention.causal_attention_fwd(qkv, n_heads),
+        plain=lambda: attention.causal_attention_ref(qkv, n_heads),
+        library=lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        err=got - want, tolerance="2 bf16 ulps of max|out|",
+        ok=bool((got - want).abs().max() <= 2 * bf16_ulp(want.abs().max())),
+        # causal q.k and p.v products: 2 * 2 * head_dim per (query, key <= query)
+        bound=bound(qkv.numel() * 2 + b * s * d * 2,
+                    4 * hd * b * n_heads * s * (s + 1) // 2, BF16_FLOP_PER_S),
+    )
 
-    # attention backward: dQ, dK and dV each within 2 bf16 ulps of its max
-    qkv, dout, n_heads = inputs["attention_bwd"]
+
+def attention_bwd_row(qkv, dout, n_heads: int, name: str, reps: int = 100) -> dict:
+    """Attention's backward: dQ, dK and dV each within 2 bf16 ulps of its
+    max, timed beside SDPA's backward op alone."""
     b, s, three_d = qkv.shape
     d = three_d // 3
     hd = d // n_heads
@@ -425,21 +452,25 @@ def backward_rows(inputs: dict) -> list[dict]:
     q, k, v = (t.contiguous() for t in qkv.view(b, s, 3, n_heads, hd).permute(2, 0, 3, 1, 4))
     d_heads = dout.view(b, s, n_heads, hd).transpose(1, 2).contiguous()
     picked, sdpa_bwd = sdpa_backward(q, k, v, d_heads)
-    print(json.dumps({"causal_attention_bwd_yardstick": picked}))
-    rows.append(dict(
-        name="causal_attention_bwd", route="cuda",
+    return dict(
+        name=name, shape=[b, s, n_heads, hd], route="cuda",
         source="operator_forge_torch/csrc/causal_attention.cu",
-        replaces="operator_forge/tpu/demo.py:86",
+        replaces="operator_forge/tpu/demo.py:86", reps=reps,
         fn=lambda: attention.causal_attention_bwd(qkv, dout, n_heads),
         plain=lambda: attention.causal_attention_bwd_ref(qkv, dout, n_heads),
-        library=sdpa_bwd,
+        library=sdpa_bwd, library_op=picked,
         err=(got.float() - want.float()), tolerance="2 bf16 ulps of max|dq|, max|dk|, max|dv|",
         ok=all(within_ulps(g, w, 2) for g, w in parts),
         # read qkv and dout, write dqkv; five causal products (the score
         # recompute, dP, dV, dQ, dK) of 2 * head_dim each
         bound=bound(2 * qkv.numel() * 2 + dout.numel() * 2,
                     5 * 2 * hd * b * n_heads * s * (s + 1) // 2, BF16_FLOP_PER_S),
-    ))
+    )
+
+
+def backward_rows(inputs: dict) -> list[dict]:
+    """The train step's kernels: the three backwards and cross entropy."""
+    rows = [attention_bwd_row(*inputs["attention_bwd"], "causal_attention_bwd")]
 
     # RMSNorm backward: rtol 1e-5, atol 1e-6 of each output's max; the
     # size of the cluster it runs on (none where a tree's backward takes
@@ -555,7 +586,9 @@ def ring_block_row(name: str, shape, case: str, g) -> dict:
 RING_TIMED = (("ring_attention_step", (8, 4, 16, 32), "earlier"),
               ("ring_attention_step_256", (1, 4, 256, 32), "earlier"),
               ("ring_attention_step_1024", (1, 4, 1024, 32), "earlier"),
-              ("ring_attention_step_4096", (1, 4, 4096, 32), "first"))
+              ("ring_attention_step_1024d", (1, 4, 1024, 32), "diagonal"),
+              ("ring_attention_step_4096", (1, 4, 4096, 32), "first"),
+              ("ring_attention_step_4096e", (1, 4, 4096, 32), "earlier"))
 
 
 def ring_rows(config: demo.DemoConfig) -> list[dict]:
@@ -695,6 +728,22 @@ def ring_bwd_rows() -> list[dict]:
     return [ring_bwd_block_row(name, shape, case, g) for name, shape, case in RING_BWD_TIMED]
 
 
+def second_path_rows() -> list[dict]:
+    """The kernels that only shapes off the main path reach, at heads of
+    256 (Gemma 7B's): attention's rows kernels, forward and backward, at
+    the wide step's seq of 2048 and DemoConfig()'s 4 heads; the ring
+    step's long kernel and the backward's row kernel at a block of 1024
+    keys, earlier.  Each checked and timed as the main path's rows are."""
+    g = torch.Generator().manual_seed(29)
+    qkv = torch.randn((1, 2048, 3 * 4 * 256), generator=g).cuda().bfloat16()
+    dout = torch.randn((1, 2048, 4 * 256), generator=g).cuda().bfloat16()
+    shape = (1, 4, 1024, 256)
+    return [attention_row(qkv, 4, "causal_attention_hd256", reps=10),
+            attention_bwd_row(qkv, dout, 4, "causal_attention_bwd_hd256", reps=10),
+            ring_block_row("ring_attention_step_hd256", shape, "earlier", g),
+            ring_bwd_block_row("ring_attention_step_bwd_hd256", shape, "earlier", g)]
+
+
 def ring_step_f64(q, k, v, m, num, den, my: int, origin: int) -> tuple:
     """The ring step in float64 (the reference's lines, without f32
     rounding): what the kernel and the plain version are both measured
@@ -799,10 +848,13 @@ def domain_checks() -> None:
     got = ra.ring_step(q, k, v, *(t.clone() for t in carry), my, origin)
     want = ra.ring_step_ref(q, k, v, *carry, my, origin)
     exact = ring_step_f64(q, k, v, *carry, my, origin)
+    scratch = [t.clone() for t in carry]
     print(json.dumps({"ring_attention_step_vs_float64": {
-        "shape": [1, 4, 2048, 32], **{who: {name: float((t.double() - x).abs().max())
-                                            for name, t, x in zip(("m", "num", "den"), ts, exact)}
-                                      for who, ts in (("kernel", got), ("plain", want))}}}))
+        "shape": [1, 4, 2048, 32],
+        "graph_ms": graph_ms(lambda: ra.ring_step(q, k, v, *scratch, my, origin), 20, 5),
+        **{who: {name: float((t.double() - x).abs().max())
+                 for name, t, x in zip(("m", "num", "den"), ts, exact)}
+           for who, ts in (("kernel", got), ("plain", want))}}}))
     # past 1024 keys the atol is 2e-5 of each part's max (carry_close's
     # scaled rule): the plain version's own f32 sums round by more
     checks.append(("ring_attention_step", [1, 4, 2048, 32],
@@ -816,31 +868,7 @@ def domain_checks() -> None:
 
 
 def phase_kernels(inputs: dict, config: demo.DemoConfig) -> list[dict]:
-    rows = []
-
-    # attention: within 2 bf16 ulps of the output's magnitude (the kernel
-    # sums in another order than cuBLAS before each bf16 rounding)
-    qkv, n_heads = inputs["attention"]
-    b, s, three_d = qkv.shape
-    d = three_d // 3
-    hd = d // n_heads
-    got = attention.causal_attention_fwd(qkv, n_heads).float()
-    want = attention.causal_attention_ref(qkv, n_heads).float()
-    q, k, v = qkv.view(b, s, 3, n_heads, hd).permute(2, 0, 3, 1, 4)
-    rows.append(dict(
-        name="causal_attention", route="cuda",
-        source="operator_forge_torch/csrc/causal_attention.cu",
-        replaces="operator_forge/tpu/demo.py:86",
-        fn=lambda: attention.causal_attention_fwd(qkv, n_heads),
-        plain=lambda: attention.causal_attention_ref(qkv, n_heads),
-        library=lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-        err=got - want, tolerance="2 bf16 ulps of max|out|",
-        ok=bool((got - want).abs().max() <= 2 * bf16_ulp(want.abs().max())),
-        # causal q.k and p.v products: 2 * 2 * head_dim per (query, key <= query)
-        bound=bound(qkv.numel() * 2 + b * s * d * 2,
-                    4 * hd * b * n_heads * s * (s + 1) // 2, BF16_FLOP_PER_S),
-    ))
-
+    rows = [attention_row(*inputs["attention"], "causal_attention")]
     rows.append(rmsnorm_row(*inputs["rmsnorm"], "rmsnorm"))
     rows.append(rmsnorm_row(*inputs["rmsnorm_wide"], "rmsnorm_wide"))
 
@@ -849,10 +877,11 @@ def phase_kernels(inputs: dict, config: demo.DemoConfig) -> list[dict]:
     rows += backward_rows(inputs)
     rows += ring_rows(config)
     rows += ring_bwd_rows()
+    second = second_path_rows()
     domain_checks()
 
-    out = []
-    for row in rows:
+    out, second_out = [], []
+    for i, row in enumerate(rows + second):
         err = float(row["err"].abs().max())
         if not row["ok"]:
             fail(f"{row['name']} disagrees with its plain version: max |err| "
@@ -883,13 +912,17 @@ def phase_kernels(inputs: dict, config: demo.DemoConfig) -> list[dict]:
                for what, fn in row.get("extra", {}).items()},
         }
         print(json.dumps(line))
-        out.append(line)
+        (out if i < len(rows) else second_out).append(line)
     # step 2's order: each kernel's device time over its PyTorch call's
     ranking = sorted(({"name": r["name"], "graph_ms": r["graph_ms"],
                        "library_graph_ms": r["library_graph_ms"],
-                       "factor": r["graph_ms"] / r["library_graph_ms"]} for r in out),
+                       "factor": r["graph_ms"] / r["library_graph_ms"]} for r in out + second_out),
                      key=lambda r: -r["factor"])
     print(json.dumps({"against_library": ranking}))
+    # the main path launches none of these: their line says so
+    for line in second_out:
+        line["launches"] = 0
+    print(json.dumps({"second_paths": second_out}))
     return out
 
 
@@ -1047,27 +1080,30 @@ def replay_ring(q, k, v, n: int) -> torch.Tensor:
 
 
 def phase_ring(config: demo.DemoConfig) -> dict:
-    """The replayed 4-rank ring and the real ring on the group of one, at
-    [8, 4, 64, 32] (``DemoConfig()``'s batch, heads and head width at seq
-    64) and [1, 4, 1024, 32], against dense at rtol and atol 2e-5."""
+    """The replayed ring and the real ring on the group of one, against
+    dense at rtol and atol 2e-5: at [8, 4, 64, 32] (``DemoConfig()``'s
+    batch, heads and head width at seq 64) and [1, 4, 1024, 32] replayed on
+    4 ranks, and at [1, 4, 8192, 32] on 2 (blocks of 4096 keys, an earlier
+    one among them)."""
     g = torch.Generator().manual_seed(13)
     shapes = [(config.batch, config.n_heads, config.seq_len, config.head_dim),
-              (1, config.n_heads, 1024, config.head_dim)]
+              (1, config.n_heads, 1024, config.head_dim), (1, config.n_heads, 8192, config.head_dim)]
+    ranks = [RING_RANKS, RING_RANKS, 2]
     inputs = [[torch.randn(shape, generator=g).cuda() for _ in range(3)] for shape in shapes]
     mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("seq",))
     result, launches = {}, dict.fromkeys(COUNTERS, 0)
     for what, run in (
-        (f"replayed {RING_RANKS}-rank ring", lambda q, k, v: replay_ring(q, k, v, RING_RANKS)),
-        ("ring_attention on an NCCL group of one", lambda q, k, v: ring_of_one(q, k, v, mesh)),
+        ("replayed ring", replay_ring),
+        ("ring_attention on an NCCL group of one", lambda q, k, v, n: ring_of_one(q, k, v, mesh)),
     ):
         reset_counts()
-        outs = [run(*qkv) for qkv in inputs]
+        outs = [run(*qkv, n) for qkv, n in zip(inputs, ranks)]
         torch.cuda.synchronize()
         counts = read_counts()
-        per_call = RING_RANKS * RING_RANKS if what.startswith("replayed") else 1
-        if counts["ring_attention_step"] != per_call * len(shapes):
+        want = sum(n * n for n in ranks) if what.startswith("replayed") else len(shapes)
+        if counts["ring_attention_step"] != want:
             fail(f"{what}: ring_attention_step launched {counts['ring_attention_step']} times, "
-                 f"not {per_call} per call")
+                 f"not {want}")
         errs = []
         for qkv, out in zip(inputs, outs):
             dense = demo.dense_causal_attention(*qkv)
@@ -1076,8 +1112,8 @@ def phase_ring(config: demo.DemoConfig) -> dict:
             if not torch.allclose(out, dense, rtol=2e-5, atol=2e-5):
                 fail(f"{what} differs from dense attention by {float((out - dense).abs().max()):.3e}")
             errs.append(float((out - dense).abs().max()))
-        result[what] = {"shapes": shapes, "launches": counts["ring_attention_step"],
-                        "max_abs_err_vs_dense": errs}
+        result[what] = {"shapes": shapes, "ranks": ranks if what.startswith("replayed") else 1,
+                        "launches": counts["ring_attention_step"], "max_abs_err_vs_dense": errs}
         launches = {name: launches[name] + counts[name] for name in COUNTERS}
     print(json.dumps({"ring": result}))
     return launches

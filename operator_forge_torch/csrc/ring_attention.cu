@@ -58,28 +58,46 @@
 // five products of 2 d FLOP a pair the mask leaves (s^2 earlier, s (s + 1)
 // / 2 on the diagonal) bound it by the f32 rate, 67 TFLOP/s: 0.00125 ms at
 // [1, 4, 256, 32] earlier, 0.0200 ms at [1, 4, 1024, 32] earlier, 0.160 ms
-// at [1, 4, 4096, 32] on the diagonal.
+// at [1, 4, 4096, 32] on the diagonal.  The forward at those blocks is
+// bound the same way by its two products and the softmax, 4 d + 4
+// operations a pair: 0.0661 ms at [1, 4, 4096, 32] on the diagonal,
+// 0.132 ms earlier.
 //
-// Forward design: one warp per query row, so the chain of dependent work a
-// row needs runs in parallel over every row of the step: at the shape
-// above 512 warps in 128 blocks of 4, over (group of rows, head, batch).  A
-// block stages the keys and values its rows see into shared memory as f32
-// rows padded to d + 1, with 16-byte loads where d allows (bf16 is widened
-// there): both at once when they fit in one chunk of 128 keys, else the
-// keys chunk by chunk and then the values.  Lane j scores keys j, j + 32,
-// ... of each chunk against the row's q, broadcast from shared memory,
-// with four independent FMA chains over d; the warp's scores stay in its
-// own row of shared memory, so the block max is taken, by warp shuffles,
-// before any exp, as the reference takes it.  p replaces the score in
-// place; lane c then owns output columns c, c + 32, ... and sums p_j v_j
-// over the row's keys in two chains (even and odd keys), p read by every
-// lane from the warp's row.  That kernel takes blocks of up to kMaxSeq
-// keys and heads of up to kShortHeadDim.  A longer block, a wider head or
-// more than 65535 batches or heads go to a second kernel on a flat grid,
-// which keeps no score row: it scores the keys twice, chunk by chunk (the
-// chunk shrinks for a wide head), once for the block max and once for exp,
-// the sums and p v, with the same FMA order and so the same bits, and
-// takes a wide head's output columns 128 at a time.
+// Forward design: three kernels, one launch a call, chosen by shape
+// (fwd_plan).  Blocks under kFwdTileMinSeq keys with heads of up to
+// kShortHeadDim and at most 65535 batches and heads take ring_step_kernel,
+// one warp per query row on a (row group, head, batch) grid, so the chain
+// of dependent work a row needs runs in parallel over every row of the
+// step: at the shape above 512 warps in 128 blocks of 4.  A block stages
+// the keys and values its rows see into shared memory as f32 rows padded
+// to d + 1, with 16-byte loads where d allows (bf16 is widened there):
+// both at once when they fit in one chunk of 128 keys, else the keys chunk
+// by chunk and then the values.  Lane j scores keys j, j + 32, ... of each
+// chunk against the row's q, broadcast from shared memory, with four
+// independent FMA chains over d; the warp's scores stay in its own row of
+// shared memory, so the block max is taken, by warp shuffles, before any
+// exp, as the reference takes it.  p replaces the score in place; lane c
+// then owns output columns c, c + 32, ... and sums p_j v_j over the row's
+// keys in two chains (even and odd keys), p read by every lane from the
+// warp's row.
+// Blocks of kFwdTileMinSeq keys and more, and blocks of kTileMinSeq keys
+// and more with over 65535 batches or heads, take ring_step_tiled_kernel
+// where heads are up to kTileHeadDim wide: a tile of 32 or 64 query rows a
+// block, on a flat grid, heaviest tiles first, shares each staged chunk of
+// 64 keys (and values) among its rows, and each 16-byte shared load among
+// four FMAs, a thread holding 4 x 4 scores in registers, one ascending FMA
+// chain over d each.  It keeps no score row: it walks the chunks the
+// causal mask leaves twice, first for each row's max (over its 16 threads
+// by shuffles, and over a cluster's blocks through distributed shared
+// memory), then scoring again with the same code, so the same bits, for p,
+// the row sums and p v, which add into 4 rows x kNc columns of registers a
+// thread, in ascending key order.  Chunks arrive by cp.async into two
+// buffers, the next in flight while this one is used.  Tile height and
+// clusters go by grid size (fwd_plan).  What neither takes, heads over
+// kTileHeadDim and blocks under kTileMinSeq keys with more than 65535
+// batches or heads, goes to ring_step_long_kernel, a warp a row on a flat
+// grid, which also scores the keys twice, chunk by chunk (the chunk shrinks
+// for a wide head), and takes a wide head's output columns 128 at a time.
 //
 // Backward design: two roles in one launch.  Query rows sum dq over the
 // keys they see; key rows sum dk and dv over the queries that see them; so
@@ -93,10 +111,10 @@
 // columns, which stay in registers over every chunk.  Chunks of 64 rows
 // arrive by cp.async into two buffers, the next in flight while this one
 // is used; only the chunks the causal mask leaves are staged.  The tile's
-// height goes by grid size (bwd_tile_rows): 64 rows where their grid
+// height goes by grid size (bwd_plan): 64 rows where their grid
 // gives every SM two blocks, else 32; 64-row tiles of a diagonal block go
 // in pairs (t with tiles - 1 - t), so that every block does the same work.
-// Where long tiles still leave the card short of blocks (bwd_parts), the
+// Where long tiles still leave the card short of blocks, the
 // two blocks of a cluster share each tile's chunks, and the second's sums
 // reach the first through distributed shared memory, which adds them
 // after its own.  Its launch bounds ask for as many blocks an SM as shared
@@ -528,7 +546,7 @@ ring_step_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- backward, tiled ----------------------------------------------------
+// ---- register tiles ----------------------------------------------------
 
 constexpr int kTileOthers = 64;     // others (keys, or queries) staged a chunk
 constexpr int kTileHeadDim = 128;   // the widest head of the tiled kernel
@@ -581,21 +599,302 @@ __device__ __forceinline__ void stage_tile(float* dst, const T* __restrict__ src
   }
 }
 
-// The tiled kernel's shared memory with `stages` buffers of the other side,
-// in bytes
-__host__ __device__ constexpr size_t tiled_smem(int kTy, int kNc, int stages) {
-  return sizeof(float) * ((size_t)2 * 4 * kTy * (16 * kNc + 4) +
+// A tiled kernel's shared memory, in bytes: `own` planes of the tile's
+// rows, `stages` buffers of the other side's two planes, and `bufs`
+// buffers [kTileOthers][rows + 4] of p or dS; the backward's by default
+__host__ __device__ constexpr size_t tiled_smem(int kTy, int kNc, int stages, int own = 2,
+                                                int bufs = 2) {
+  return sizeof(float) * ((size_t)own * 4 * kTy * (16 * kNc + 4) +
                           (size_t)stages * 2 * kTileOthers * (16 * kNc + 4) +
-                          (size_t)2 * kTileOthers * (4 * kTy + 4));
+                          (size_t)bufs * kTileOthers * (4 * kTy + 4));
 }
 
-// The blocks of the tiled kernel an SM's shared memory holds (233,472
-// bytes, 1 KB of it kept a block): its launch bounds ask for them, so that
-// registers never cut the warps an SM keeps in flight first
-__host__ __device__ constexpr int tiled_resident(int kTy, int kNc) {
-  return (int)(233472 / ((tiled_smem(kTy, kNc, 2) <= (size_t)of::kMaxSmemBytes
-                              ? tiled_smem(kTy, kNc, 2) : tiled_smem(kTy, kNc, 1)) + 1024));
+// The blocks of a tiled kernel an SM's shared memory holds (233,472 bytes,
+// 1 KB of it kept a block), from its shared memory with two buffers and
+// with one: its launch bounds ask for them, so that registers never cut
+// the warps an SM keeps in flight first
+__host__ __device__ constexpr int resident(size_t two, size_t one) {
+  return (int)(233472 / ((two <= (size_t)of::kMaxSmemBytes ? two : one) + 1024));
 }
+
+// Columns hd .. 16 kNc of `rows` staged rows from `dst`, kLd floats apart,
+// set to zeros: the FMA chains and the 16-byte loads run past hd
+template <int kNc>
+__device__ __forceinline__ void zero_pad(float* dst, int rows, int hd, int ld) {
+  constexpr int kW = 16 * kNc;
+  if (hd < kW)
+    for (int i = threadIdx.x; i < rows * (kW - hd); i += blockDim.x)
+      dst[(i / (kW - hd)) * ld + hd + i % (kW - hd)] = 0.0f;
+}
+
+// sc[a][b] += x row ty + kTy a . y row tx + 16 b over columns c .. c + 3,
+// rows kLd floats apart: a step of each of the 16 pairs' FMA chains, in
+// ascending order, fed by 16-byte shared loads
+template <int kTy, int kLd>
+__device__ __forceinline__ void score_step(float (&sc)[4][4], const float* x, const float* y,
+                                           int ty, int tx, int c) {
+  float4 xs[4], ys[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) xs[a] = *reinterpret_cast<const float4*>(x + (ty + kTy * a) * kLd + c);
+#pragma unroll
+  for (int b = 0; b < 4; ++b) ys[b] = *reinterpret_cast<const float4*>(y + (tx + 16 * b) * kLd + c);
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) sc[a][b] = dot4(xs[a], ys[b], sc[a][b]);
+}
+
+// Part p's run [x, y) of the others [begin, end) cut into `parts` runs
+// of whole chunks of kTileOthers, in rank order
+__device__ __forceinline__ int2 part_range(int begin, int end, int part, int parts) {
+  const long long per =
+      (long long)((end - begin + kTileOthers - 1) / kTileOthers + parts - 1) / parts * kTileOthers;
+  return make_int2((int)min((long long)end, begin + part * per),
+                   (int)min((long long)end, begin + (part + 1) * per));
+}
+
+// ---- forward, tiled -----------------------------------------------------
+
+// The tiled forward's shared memory with `stages` buffers of keys and
+// values, in bytes: q of the tile's rows, the staged chunks, p, and one
+// more row of p's width for the part's row max
+__host__ __device__ constexpr size_t fwd_smem(int kTy, int kNc, int stages) {
+  return tiled_smem(kTy, kNc, stages, 1, 1) + sizeof(float) * (4 * kTy + 4);
+}
+
+// One tile of the tiled forward step: kRows = 4 * kTy query rows from r0
+// against the keys they see, in chunks of kTileOthers staged through
+// `stages` (1 or 2) cp.async buffers, walked twice.  Thread (ty, tx)
+// scores its rows ty + kTy a against the chunk's keys tx + 16 b (a, b < 4)
+// in registers (score_step).  Pass one keeps each row's running max; its
+// max over the 16 tx (and the parts) gives the shift and the correction
+// before any exp, as the reference takes the block max.  Pass two scores
+// again with the same code, so with the same bits, forms p, adds it into
+// the row's sum, writes it to shared memory, and adds p times the staged
+// values into the thread's 4 x kNc sums, columns tx kNc .., in registers,
+// in ascending key order.  Returns at once for a later block.  With more
+// than one of `parts` (the blocks of a cluster), part p takes the p-th run
+// of whole chunks: the parts' row maxima meet through distributed shared
+// memory before pass two, and part 0 adds the others' sums to its own in
+// rank order before it writes.
+template <typename T, int kTy, int kNc>
+__device__ __forceinline__ void fwd_tile(const T* __restrict__ q, const T* __restrict__ k,
+                                         const T* __restrict__ v, float* __restrict__ m,
+                                         float* __restrict__ num, float* __restrict__ den,
+                                         float* smem, int s, int hd, long long lag, bool vec,
+                                         int stages, size_t plane, int r0, int part, int parts) {
+  constexpr int kRows = 4 * kTy;   // query rows of a tile
+  constexpr int kN = kTileOthers;  // keys of a chunk
+  constexpr int kLd = 16 * kNc + 4;
+  constexpr int kLdB = kRows + 4;  // row stride of the p buffer
+  const int tid = threadIdx.x, lane = tid & 31;
+  // a warp holds 2 ty by the 16 tx: a row's max and sum are shuffles
+  // within half a warp
+  const int ty = (tid >> 5) * 2 + (lane >> 4), tx = lane & 15;
+  const int rows = min(kRows, s - r0);
+  // query i sees key j when j <= lag + i: the keys the tile sees
+  const int n_keys = (int)max(0LL, min((long long)s, lag + r0 + rows));
+  if (n_keys == 0) return;  // a later block: the carry stays as it is
+  const int2 range = part_range(0, n_keys, part, parts);
+  const int lo = range.x, hi = range.y;
+
+  float* own_q = smem;                        // [kRows][kLd] q
+  float* kv = own_q + kRows * kLd;            // [stages][2][kN][kLd] keys and values
+  float* p_buf = kv + stages * 2 * kN * kLd;  // [kN][kLdB] p, own rows in slot order
+  float* row_max = p_buf + kN * kLdB;         // [kRows] the part's row max
+
+  const float scale = 1.0f / sqrtf((float)hd);
+  const size_t stat = plane * s, base = stat * hd;
+  const int hd4 = (hd + 3) & ~3;
+  // step i < n_chunks scores chunk i; step n_chunks + i scores it again
+  // beside its values
+  const int n_chunks = (hi - lo + kN - 1) / kN;
+  const int steps = 2 * n_chunks;
+  const auto stage_step = [&](int step, float* dst) {
+    const int o0 = lo + (step < n_chunks ? step : step - n_chunks) * kN;
+    stage_tile<T, kN>(dst, k + base, o0, min(kN, hi - o0), hd, kLd, vec);
+    if (step >= n_chunks) stage_tile<T, kN>(dst + kN * kLd, v + base, o0, min(kN, hi - o0), hd, kLd, vec);
+  };
+
+  float rmax[4], total[4], new_m[4], shift[4], corr[4], acc[4][kNc];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    rmax[a] = -INFINITY;
+    total[a] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < kNc; ++e) acc[a][e] = 0.0f;
+  }
+  if (lo < hi) {
+    zero_pad<kNc>(own_q, kRows + 2 * stages * kN, hd, kLd);
+    stage_tile<T, kRows>(own_q, q + base, r0, rows, hd, kLd, vec);
+    stage_step(0, kv);
+    of::cp_async_commit();
+  }
+
+  const auto run_step = [&](int step) {
+    const bool second = step >= n_chunks;
+    const int o0 = lo + (second ? step - n_chunks : step) * kN;
+    const int n = min(kN, hi - o0);
+    // with two buffers the next step's copies fly during this one
+    if (stages == 2 && step + 1 < steps) stage_step(step + 1, kv + ((step + 1) & 1) * 2 * kN * kLd);
+    of::cp_async_commit();
+    if (stages == 2)
+      of::cp_async_wait<1>();  // all but the next step's copies
+    else
+      of::cp_async_wait<0>();
+    __syncthreads();
+    const float* ks = kv + (step & (stages - 1)) * 2 * kN * kLd;
+    const float* vs = ks + kN * kLd;
+
+    float sc[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) sc[a][b] = 0.0f;
+#pragma unroll 1
+    for (int c = 0; c < hd4; c += 4) score_step<kTy, kLd>(sc, own_q, ks, ty, tx, c);
+
+    // pass one: the running max of the scores the mask leaves; pass two:
+    // their p, zeros elsewhere, into the row sums and the buffer, where
+    // key o's row holds own row ty + kTy a at slot 4 ty + a
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int o = o0 + tx + 16 * b;
+      float pv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int r = r0 + ty + kTy * a;
+        const bool live = r < s && o < hi && o <= lag + r;
+        const float score = __fmul_rn(sc[a][b], scale);
+        if (!second) {
+          if (live) rmax[a] = fmaxf(rmax[a], score);
+        } else {
+          pv[a] = live ? expf(score - shift[a]) : 0.0f;
+          total[a] += pv[a];
+        }
+      }
+      if (second)
+        *reinterpret_cast<float4*>(p_buf + (tx + 16 * b) * kLdB + 4 * ty) =
+            make_float4(pv[0], pv[1], pv[2], pv[3]);
+    }
+    if (second) {
+      __syncthreads();
+      // num += p v over the chunk's keys in ascending order
+      for (int j = 0; j < n; ++j) {
+        const float4 p4 = *reinterpret_cast<const float4*>(p_buf + j * kLdB + 4 * ty);
+        const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+        float vr[kNc];
+        load_cols<kNc>(vr, vs + j * kLd + tx * kNc);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int e = 0; e < kNc; ++e) acc[a][e] = fmaf(pv[a], vr[e], acc[a][e]);
+      }
+    }
+    __syncthreads();  // every thread is done with this step's buffers
+    if (stages == 1 && step + 1 < steps) stage_step(step + 1, kv);
+  };
+
+  int step = 0;
+  for (; step < n_chunks; ++step) run_step(step);
+  // each row's block max over the 16 tx, then over the parts
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+    for (int o = 8; o > 0; o >>= 1)
+      rmax[a] = fmaxf(rmax[a], __shfl_xor_sync(0xffffffffu, rmax[a], o));
+  cg::cluster_group cluster = cg::this_cluster();
+  if (parts > 1) {
+    if (tx == 0)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) row_max[ty + kTy * a] = rmax[a];
+    cluster.sync();
+    for (int from = 0; from < parts; ++from) {
+      if (from == part) continue;
+      const float* theirs = cluster.map_shared_rank(row_max, from);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) rmax[a] = fmaxf(rmax[a], theirs[ty + kTy * a]);
+    }
+  }
+  // the new running max, the guarded shift and the correction
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = r0 + ty + kTy * a;
+    const float m_old = r < s ? m[stat + r] : -INFINITY;
+    new_m[a] = fmaxf(m_old, rmax[a]);
+    shift[a] = isinf(new_m[a]) ? 0.0f : new_m[a];
+    corr[a] = expf(m_old - shift[a]);
+  }
+  for (; step < steps; ++step) run_step(step);
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+    for (int o = 8; o > 0; o >>= 1) total[a] += __shfl_xor_sync(0xffffffffu, total[a], o);
+
+  if (parts > 1) {
+    // the other parts' sums, thread by thread, in their shared memory (free
+    // now, below row_max), which part 0 adds to its own in rank order
+    constexpr int kPer = 4 * kNc + 4;
+    if (part > 0)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        smem[tid * kPer + 4 * kNc + a] = total[a];
+#pragma unroll
+        for (int e = 0; e < kNc; ++e) smem[tid * kPer + a * kNc + e] = acc[a][e];
+      }
+    cluster.sync();
+    if (part == 0)
+      for (int from = 1; from < parts; ++from) {
+        const float* theirs = cluster.map_shared_rank(smem, from) + tid * kPer;
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          total[a] = __fadd_rn(total[a], theirs[4 * kNc + a]);
+#pragma unroll
+          for (int e = 0; e < kNc; ++e) acc[a][e] = __fadd_rn(acc[a][e], theirs[a * kNc + e]);
+        }
+      }
+    cluster.sync();  // the parts' shared memory outlives part 0's reads
+    if (part > 0) return;
+  }
+
+  // the carry, rounding the product and then the sum
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = r0 + ty + kTy * a;
+    if (r >= s) continue;
+    if (tx == 0) {
+      m[stat + r] = new_m[a];
+      den[stat + r] = __fadd_rn(__fmul_rn(den[stat + r], corr[a]), total[a]);
+    }
+#pragma unroll
+    for (int e = 0; e < kNc; ++e) {
+      const int c = tx * kNc + e;
+      if (c >= hd) continue;
+      const size_t at = (stat + r) * hd + c;
+      num[at] = __fadd_rn(__fmul_rn(num[at], corr[a]), acc[a][e]);
+    }
+  }
+}
+
+// The forward step on register tiles, for heads of up to kTileHeadDim, in
+// blocks of 16 * kTy threads.  Block b of the grid is part b % parts of
+// unit u = b / parts, which takes plane u % planes and tile tiles - 1 - u
+// / planes: heaviest first, as on the diagonal a tile's keys grow with its
+// index, so that the lightest tiles fill the grid's last blocks.
+template <typename T, int kTy, int kNc>
+__global__ void __launch_bounds__(kTy * 16, resident(fwd_smem(kTy, kNc, 2), fwd_smem(kTy, kNc, 1)))
+ring_step_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, float* __restrict__ m, float* __restrict__ num,
+                       float* __restrict__ den, int s, int hd, int q_block, int k_block,
+                       bool vec, int tiles, unsigned int planes, int stages, int parts) {
+  extern __shared__ __align__(16) float tile_smem[];
+  const int part = (int)(blockIdx.x % parts);
+  const unsigned int unit = blockIdx.x / parts;
+  const int t = tiles - 1 - (int)(unit / planes);
+  const long long lag = ((long long)q_block - k_block) * s;
+  fwd_tile<T, kTy, kNc>(q, k, v, m, num, den, tile_smem, s, hd, lag, vec, stages, unit % planes,
+                        t * 4 * kTy, part, parts);
+}
+
+// ---- backward, tiled ----------------------------------------------------
 
 // One tile of the tiled backward step: kRows = 4 * kTy rows from r0, query
 // rows (dq) or key rows (dk, dv), against the other side in chunks of
@@ -633,10 +932,9 @@ __device__ __forceinline__ void bwd_tile(const T* __restrict__ q, const T* __res
   const int o_begin = keys ? (int)min((long long)s, max(0LL, r0 - lag)) : 0;
   const int o_end = keys ? s : (int)max(0LL, min((long long)s, lag + r0 + rows));
   if (o_begin >= o_end) return;  // a later block: the accumulators stay as they are
-  // this part's others: [lo, hi), whole chunks, the parts' in rank order
-  const long long per = (long long)((o_end - o_begin + kN - 1) / kN + parts - 1) / parts * kN;
-  const int lo = (int)min((long long)o_end, o_begin + part * per);
-  const int hi = (int)min((long long)o_end, o_begin + (part + 1) * per);
+  // this part's others: [lo, hi)
+  const int2 range = part_range(o_begin, o_end, part, parts);
+  const int lo = range.x, hi = range.y;
 
   float* own_x = smem;                    // [kRows][kLd] q, or k
   float* own_y = own_x + kRows * kLd;     // [kRows][kLd] dout, or v
@@ -652,12 +950,7 @@ __device__ __forceinline__ void bwd_tile(const T* __restrict__ q, const T* __res
 #pragma unroll
     for (int e = 0; e < kNc; ++e) acc0[a][e] = acc1[a][e] = 0.0f;
   if (lo < hi) {
-    // the staged rows' columns past hd are zeros
-    if (hd < kW)
-      for (int i = tid; i < (2 * kRows + 2 * stages * kN) * (kW - hd); i += blockDim.x) {
-        const int row = i / (kW - hd);
-        own_x[row * kLd + hd + i % (kW - hd)] = 0.0f;
-      }
+    zero_pad<kNc>(own_x, 2 * kRows + 2 * stages * kN, hd, kLd);
     const size_t base = plane * s * hd;
     const T* a_src = keys ? q : k;
     const T* b_src = keys ? dout : v;
@@ -717,27 +1010,8 @@ __device__ __forceinline__ void bwd_tile(const T* __restrict__ q, const T* __res
       // SM) and gained no time on the card
 #pragma unroll 1
       for (int c = 0; c < hd4; c += 4) {
-        float4 x[4], y[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-          x[a] = *reinterpret_cast<const float4*>(own_x + (ty + kTy * a) * kLd + c);
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          y[b] = *reinterpret_cast<const float4*>(a_rows + (tx + 16 * b) * kLd + c);
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) sc[a][b] = dot4(x[a], y[b], sc[a][b]);
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-          x[a] = *reinterpret_cast<const float4*>(own_y + (ty + kTy * a) * kLd + c);
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          y[b] = *reinterpret_cast<const float4*>(b_rows + (tx + 16 * b) * kLd + c);
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) dp[a][b] = dot4(x[a], y[b], dp[a][b]);
+        score_step<kTy, kLd>(sc, own_x, a_rows, ty, tx, c);
+        score_step<kTy, kLd>(dp, own_y, b_rows, ty, tx, c);
       }
 
       // p and dS of the pairs the mask leaves, zeros elsewhere, into the
@@ -850,7 +1124,7 @@ __device__ __forceinline__ void bwd_tile(const T* __restrict__ q, const T* __res
 // also tile tiles - 1 - t, so that its work under the causal mask is the
 // same for every t.
 template <typename T, int kTy, int kNc>
-__global__ void __launch_bounds__(kTy * 16, tiled_resident(kTy, kNc))
+__global__ void __launch_bounds__(kTy * 16, resident(tiled_smem(kTy, kNc, 2), tiled_smem(kTy, kNc, 1)))
 ring_step_bwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const T* __restrict__ dout,
                            const float* __restrict__ m, const float* __restrict__ den,
@@ -889,84 +1163,13 @@ bool valid(int b, int h, int s, int hd, int q_block, int k_block) {
          k_block >= 0;
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* m, void* num,
-           void* den, int b, int h, int s, int hd, int q_block, int k_block,
-           void* stream) {
-  const int row_blocks = row_blocks_of(b, h, s, 1);
-  if (!valid(b, h, s, hd, q_block, k_block) || row_blocks == 0) return cudaErrorInvalidValue;
-  // 16-byte loads need whole 16-byte pieces of a row and aligned planes
-  const bool vec = (hd * (int)sizeof(T)) % 16 == 0 && of::aligned16(q, k, v);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool short_block = s <= kMaxSeq && hd <= kShortHeadDim && b <= 65535 && h <= 65535;
-  const void* kernel = short_block ? reinterpret_cast<const void*>(ring_step_kernel<T>)
-                                   : reinterpret_cast<const void*>(ring_step_long_kernel<T>);
-  const cudaError_t err = of::set_attribute_once(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, of::kMaxSmemBytes);
-  if (err != cudaSuccess) return err;
-  if (short_block) {
-    const int chunk = min(kChunk, s);
-    const size_t smem = sizeof(float) * ((size_t)2 * chunk * (hd + 1) +
-                                         (size_t)kWarps * hd + (size_t)kWarps * s);
-    const dim3 grid((s + kWarps - 1) / kWarps, h, b);
-    ring_step_kernel<T><<<grid, 32 * kWarps, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<float*>(m), static_cast<float*>(num), static_cast<float*>(den),
-        s, hd, q_block, k_block, vec);
-    return cudaGetLastError();
-  }
-  const int chunk = chunk_for(s, kWarps * hd, 2 * (hd + 1) + kWarps);
-  if (chunk < 1) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)2 * chunk * (hd + 1) + (size_t)kWarps * hd +
-                                       (size_t)kWarps * chunk);
-  ring_step_long_kernel<T><<<row_blocks * b * h, 32 * kWarps, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<float*>(m), static_cast<float*>(num), static_cast<float*>(den),
-      s, hd, q_block, k_block, vec, chunk, row_blocks);
-  return cudaGetLastError();
-}
-
-// The tiled backward kernel's rows a tile for a step of `planes` heads of
-// s rows and hd columns, or 0 where the row kernel takes the step: a head
-// wider than kTileHeadDim, or a block of fewer than kTileMinSeq rows, where
-// the row kernel's many small blocks finish sooner.  Otherwise 64 rows,
-// which share each staged chunk among more rows, where their grid gives
-// every SM two blocks (kFullGrid) and so hides the latency of each; else 32
-// rows, whose grid of twice the blocks fills the card sooner.  64-row tiles
-// go in pairs on the diagonal (`paired`), so that each block's work is the
-// same and the grid ends in one wave; 32-row tiles never do, since halving
-// a grid that does not fill the card costs more than the imbalance.
-constexpr int kTileMinSeq = 64;
-constexpr long long kFullGrid = 256;
-
-bool paired(int rows, bool diagonal) { return diagonal && rows == 64; }
-
-// blocks of the tiled kernel's grid: two roles, each a block a tile or a
-// pair of tiles
-long long tiled_blocks(long long planes, int s, int rows, bool diagonal) {
-  const long long tiles = (s + rows - 1) / rows;
-  return 2 * planes * (paired(rows, diagonal) ? (tiles + 1) / 2 : tiles);
-}
-
-int bwd_tile_rows(long long planes, int s, int hd, bool diagonal) {
-  if (hd > kTileHeadDim || s < kTileMinSeq) return 0;
-  return tiled_blocks(planes, s, 64, diagonal) >= kFullGrid ? 64 : 32;
-}
-
-// The blocks that share each tile's chunks (a cluster): two where tiles
-// are long (at least kSplitChunks chunks) and the grid of whole tiles
-// leaves the card short of blocks, so that no tile's walk of its chunks,
-// one after another, sets the launch's time alone; an unpaired diagonal
-// block's grid counts half, as its tiles' work averages half the
-// longest's.  Shorter tiles leave a part too little to do, and four parts
-// cost more in their cluster than they save.
-constexpr int kSplitChunks = 4;
-
-int bwd_parts(long long planes, int s, int rows, bool diagonal) {
-  if (s < kSplitChunks * kTileOthers) return 1;
-  const long long blocks = tiled_blocks(planes, s, rows, diagonal);
-  return (diagonal && !paired(rows, diagonal) ? blocks / 2 : blocks) < kFullGrid ? 2 : 1;
-}
+struct FwdArgs {
+  const void *q, *k, *v;
+  void *m, *num, *den;
+  int s, hd, q_block, k_block;
+  bool vec;
+  cudaStream_t stream;
+};
 
 struct BwdArgs {
   const void *q, *k, *v, *dout, *m, *den, *big_d;
@@ -976,16 +1179,72 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-template <typename T, int kTy, int kNc>
-int launch_tiled(const BwdArgs& a, long long planes) {
-  constexpr int kRows = 4 * kTy;
-  const long long tiles = (a.s + kRows - 1) / kRows;
-  const bool diagonal = a.q_block == a.k_block;
-  const int parts = bwd_parts(planes, a.s, kRows, diagonal);
-  const long long blocks = parts * tiled_blocks(planes, a.s, kRows, diagonal);
+// How a tiled launch lays out its grid: rows a tile (64 or 32, or 0 where
+// a row kernel takes the step), the blocks of a cluster that share each
+// tile's chunks, and whether a block takes tiles t and tiles - 1 - t
+struct TilePlan {
+  int rows, parts;
+  bool paired;
+};
+
+// Blocks of a tiled grid of `roles` roles (the backward's query and key
+// rows, the forward's query rows), one a tile or a pair of tiles, before
+// its parts.
+long long tile_blocks(long long planes, int s, int rows, bool paired, int roles) {
+  const long long tiles = (s + rows - 1) / rows;
+  return roles * planes * (paired ? (tiles + 1) / 2 : tiles);
+}
+
+// The backward's plan for a step of `planes` heads of s rows and hd
+// columns: rows 0 where the row kernel takes the step, a head wider than
+// kTileHeadDim or a block of fewer than kTileMinSeq rows, where the row
+// kernel's many small blocks finish sooner.  Otherwise 64 rows, which
+// share each staged chunk among more rows, where their grid gives every
+// SM two blocks (kFullGrid) and so hides the latency of each; else 32
+// rows, whose grid of twice the blocks fills the card sooner.  64-row
+// tiles go in pairs on the diagonal, so that each block's work is the
+// same and the grid ends in one wave; 32-row tiles never do, since halving
+// a grid that does not fill the card costs more than the imbalance.  Two
+// blocks of a cluster share each tile's chunks where tiles are long (at
+// least kSplitChunks chunks) and the grid of whole tiles leaves the card
+// short of blocks, so that no tile's walk of its chunks, one after
+// another, sets the launch's time alone; an unpaired diagonal block's grid
+// counts half, as its tiles' work averages half the longest's.  Shorter
+// tiles leave a part too little to do, and four parts cost more in their
+// cluster than they save.
+constexpr int kTileMinSeq = 64;
+constexpr long long kFullGrid = 256;
+constexpr int kSplitChunks = 4;
+
+TilePlan bwd_plan(long long planes, int s, int hd, bool diagonal) {
+  if (hd > kTileHeadDim || s < kTileMinSeq) return {0, 1, false};
+  const int rows = tile_blocks(planes, s, 64, diagonal, 2) >= kFullGrid ? 64 : 32;
+  const bool paired = diagonal && rows == 64;
+  const long long blocks = tile_blocks(planes, s, rows, paired, 2);
+  const bool split = s >= kSplitChunks * kTileOthers &&
+                     (diagonal && !paired ? blocks / 2 : blocks) < kFullGrid;
+  return {rows, split ? 2 : 1, paired};
+}
+
+// f(kTy, kNc) as std::integral_constants for a plan's rows and a head of
+// hd: 16 or 8 rows a thread column, 2, 4 or 8 columns a thread
+template <typename F>
+int by_tile(const TilePlan& plan, int hd, F f) {
+  const auto width = [&](auto ty) {
+    if (hd <= 32) return f(ty, std::integral_constant<int, 2>());
+    if (hd <= 64) return f(ty, std::integral_constant<int, 4>());
+    return f(ty, std::integral_constant<int, 8>());
+  };
+  return plan.rows == 64 ? width(std::integral_constant<int, 16>())
+                         : width(std::integral_constant<int, 8>());
+}
+
+// `kernel` on a flat grid of `blocks` blocks of `threads` threads, in
+// clusters of `parts`, with `smem` bytes of dynamic shared memory
+template <typename... P, typename... A>
+int launch_clusters(void (*kernel)(P...), long long blocks, int threads, size_t smem, int parts,
+                    cudaStream_t stream, A... args) {
   if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
-  const int stages = tiled_smem(kTy, kNc, 2) <= (size_t)of::kMaxSmemBytes ? 2 : 1;
-  const auto kernel = ring_step_bwd_tiled_kernel<T, kTy, kNc>;
   const cudaError_t err = of::set_attribute_once(
       reinterpret_cast<const void*>(kernel), cudaFuncAttributeMaxDynamicSharedMemorySize,
       of::kMaxSmemBytes);
@@ -997,26 +1256,127 @@ int launch_tiled(const BwdArgs& a, long long planes) {
   cluster[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3((unsigned int)blocks);
-  config.blockDim = dim3(16 * kTy);
-  config.dynamicSmemBytes = tiled_smem(kTy, kNc, stages);
-  config.stream = a.stream;
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
   config.attrs = cluster;
   config.numAttrs = 1;
-  const cudaError_t launched = cudaLaunchKernelEx(
-      &config, kernel, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), static_cast<const float*>(a.m),
-      static_cast<const float*>(a.den), static_cast<const float*>(a.big_d),
-      static_cast<float*>(a.dq), static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.s, a.hd,
-      a.q_block, a.k_block, a.vec, (int)tiles, (unsigned int)planes, stages,
-      paired(kRows, diagonal), parts);
+  const cudaError_t launched = cudaLaunchKernelEx(&config, kernel, args...);
   return launched != cudaSuccess ? launched : cudaGetLastError();
 }
 
-template <typename T, int kTy>
-int launch_tiled_width(const BwdArgs& a, long long planes) {
-  if (a.hd <= 32) return launch_tiled<T, kTy, 2>(a, planes);
-  if (a.hd <= 64) return launch_tiled<T, kTy, 4>(a, planes);
-  return launch_tiled<T, kTy, 8>(a, planes);
+// ---- forward launches ---------------------------------------------------
+
+// The forward's plan, set by timing every plan at the ring's blocks in
+// one run (PERF.md): ring_step_kernel keeps the blocks under
+// kFwdTileMinSeq keys that it takes (heads of up to kShortHeadDim, at most
+// 65535 batches and heads), where its many small blocks finish sooner.
+// The tiled kernel takes the rest up to heads of kTileHeadDim from
+// kTileMinSeq keys: 64 rows a tile where their grid has kFullGrid blocks,
+// else 32, as the backward's; never in pairs, which cost more than the
+// imbalance they remove; and two blocks of a cluster sharing each tile's
+// chunks from kSplitChunks chunks while the grid of whole tiles has fewer
+// than twice kFullGrid blocks: a forward block needs less shared memory
+// and fewer registers than a backward one, so more of them fit an SM at
+// once, and the split pays up to twice the grid.  ring_step_long_kernel
+// takes what is left: heads over kTileHeadDim, and blocks under
+// kTileMinSeq keys with more than 65535 batches or heads.
+constexpr int kFwdTileMinSeq = 256;
+
+bool short_block(int b, int h, int s, int hd) {
+  return s <= kMaxSeq && hd <= kShortHeadDim && b <= 65535 && h <= 65535;
+}
+
+TilePlan fwd_plan(int b, int h, int s, int hd) {
+  if ((short_block(b, h, s, hd) && s < kFwdTileMinSeq) || hd > kTileHeadDim ||
+      s < kTileMinSeq)
+    return {0, 1, false};
+  const long long planes = (long long)b * h;
+  const int rows = tile_blocks(planes, s, 64, false, 1) >= kFullGrid ? 64 : 32;
+  const bool split = s >= kSplitChunks * kTileOthers &&
+                     tile_blocks(planes, s, rows, false, 1) < 2 * kFullGrid;
+  return {rows, split ? 2 : 1, false};
+}
+
+template <typename T, int kTy, int kNc>
+int launch_fwd_tiled(const FwdArgs& a, long long planes, const TilePlan& plan) {
+  const long long tiles = (a.s + 4 * kTy - 1) / (4 * kTy);
+  const int stages = fwd_smem(kTy, kNc, 2) <= (size_t)of::kMaxSmemBytes ? 2 : 1;
+  return launch_clusters(
+      ring_step_tiled_kernel<T, kTy, kNc>,
+      plan.parts * tile_blocks(planes, a.s, 4 * kTy, false, 1), 16 * kTy,
+      fwd_smem(kTy, kNc, stages), plan.parts, a.stream, static_cast<const T*>(a.q),
+      static_cast<const T*>(a.k), static_cast<const T*>(a.v), static_cast<float*>(a.m),
+      static_cast<float*>(a.num), static_cast<float*>(a.den), a.s, a.hd, a.q_block, a.k_block,
+      a.vec, (int)tiles, (unsigned int)planes, stages, plan.parts);
+}
+
+// One launch of the plan's kernel; rows 0: ring_step_kernel where the
+// block is short, else ring_step_long_kernel
+template <typename T>
+int launch_fwd(const FwdArgs& a, int b, int h, const TilePlan& plan) {
+  const long long planes = (long long)b * h;
+  if (plan.rows)
+    return by_tile(plan, a.hd, [&](auto ty, auto nc) {
+      return launch_fwd_tiled<T, decltype(ty)::value, decltype(nc)::value>(a, planes, plan);
+    });
+  const int s = a.s, hd = a.hd;
+  const int row_blocks = row_blocks_of(b, h, s, 1);
+  if (row_blocks == 0) return cudaErrorInvalidValue;
+  const bool rows_kernel = short_block(b, h, s, hd);
+  const void* kernel = rows_kernel ? reinterpret_cast<const void*>(ring_step_kernel<T>)
+                                   : reinterpret_cast<const void*>(ring_step_long_kernel<T>);
+  const cudaError_t err = of::set_attribute_once(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, of::kMaxSmemBytes);
+  if (err != cudaSuccess) return err;
+  if (rows_kernel) {
+    const int chunk = min(kChunk, s);
+    const size_t smem = sizeof(float) * ((size_t)2 * chunk * (hd + 1) +
+                                         (size_t)kWarps * hd + (size_t)kWarps * s);
+    const dim3 grid((s + kWarps - 1) / kWarps, h, b);
+    ring_step_kernel<T><<<grid, 32 * kWarps, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<float*>(a.m), static_cast<float*>(a.num), static_cast<float*>(a.den),
+        s, hd, a.q_block, a.k_block, a.vec);
+    return cudaGetLastError();
+  }
+  const int chunk = chunk_for(s, kWarps * hd, 2 * (hd + 1) + kWarps);
+  if (chunk < 1) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)2 * chunk * (hd + 1) + (size_t)kWarps * hd +
+                                       (size_t)kWarps * chunk);
+  ring_step_long_kernel<T><<<row_blocks * b * h, 32 * kWarps, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<float*>(a.m), static_cast<float*>(a.num), static_cast<float*>(a.den),
+      s, hd, a.q_block, a.k_block, a.vec, chunk, row_blocks);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* m, void* num, void* den, int b,
+           int h, int s, int hd, int q_block, int k_block, void* stream) {
+  if (!valid(b, h, s, hd, q_block, k_block)) return cudaErrorInvalidValue;
+  // 16-byte loads need whole 16-byte pieces of a row and aligned planes
+  const bool vec = (hd * (int)sizeof(T)) % 16 == 0 && of::aligned16(q, k, v);
+  const FwdArgs args{q, k, v, m, num, den, s, hd, q_block, k_block, vec,
+                     static_cast<cudaStream_t>(stream)};
+  return launch_fwd<T>(args, b, h, fwd_plan(b, h, s, hd));
+}
+
+// ---- backward launches --------------------------------------------------
+
+template <typename T, int kTy, int kNc>
+int launch_bwd_tiled(const BwdArgs& a, long long planes, const TilePlan& plan) {
+  const long long tiles = (a.s + 4 * kTy - 1) / (4 * kTy);
+  const int stages = tiled_smem(kTy, kNc, 2) <= (size_t)of::kMaxSmemBytes ? 2 : 1;
+  return launch_clusters(
+      ring_step_bwd_tiled_kernel<T, kTy, kNc>,
+      plan.parts * tile_blocks(planes, a.s, 4 * kTy, plan.paired, 2), 16 * kTy,
+      tiled_smem(kTy, kNc, stages), plan.parts, a.stream, static_cast<const T*>(a.q),
+      static_cast<const T*>(a.k), static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.m), static_cast<const float*>(a.den),
+      static_cast<const float*>(a.big_d), static_cast<float*>(a.dq), static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.s, a.hd, a.q_block, a.k_block, a.vec, (int)tiles,
+      (unsigned int)planes, stages, plan.paired, plan.parts);
 }
 
 template <typename T>
@@ -1028,11 +1388,11 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
   const BwdArgs args{q,  k,  v, dout, m,       den,     big_d, dq,
                      dk, dv, s, hd,   q_block, k_block, vec,   static_cast<cudaStream_t>(stream)};
   const long long planes = (long long)b * h;
-  switch (bwd_tile_rows(planes, s, hd, q_block == k_block)) {
-    case 64: return launch_tiled_width<T, 16>(args, planes);
-    case 32: return launch_tiled_width<T, 8>(args, planes);
-    default: break;
-  }
+  const TilePlan plan = bwd_plan(planes, s, hd, q_block == k_block);
+  if (plan.rows)
+    return by_tile(plan, hd, [&](auto ty, auto nc) {
+      return launch_bwd_tiled<T, decltype(ty)::value, decltype(nc)::value>(args, planes, plan);
+    });
   const int row_blocks = row_blocks_of(b, h, s, 2);
   if (row_blocks == 0) return cudaErrorInvalidValue;
   const cudaError_t err = of::set_attribute_once(

@@ -147,8 +147,11 @@ def ring_step(q, k_blk, v_blk, m, num, den, q_block: int, k_block: int) -> tuple
     after each step, so updating it in place computes the same function
     without a copy (autograd goes through ``demo.RingAttention``, whose
     forward records no graph).  CPU tensors take the plain version; CUDA
-    tensors one launch of the kernel, also for a later block (``k_block >
-    q_block``), whose keys are all masked: its blocks exit at once and the
+    tensors one launch of one of three kernels, chosen by shape: a warp a
+    query row under 256 keys, register tiles from there (and from 64 keys
+    past 65535 batches or heads) up to heads of 128, a second warp-a-row
+    kernel for the rest.  A later block (``k_block > q_block``), whose keys
+    are all masked, is one launch too: its blocks exit at once and the
     carry keeps its bits."""
     global launches
     b, h, s, d = _check(q, k_blk, v_blk, m, num, den)

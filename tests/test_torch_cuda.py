@@ -393,7 +393,13 @@ def ring_inputs(shape, case, device, dtype=torch.float32, seed=30):
      # past the former caps: s 1025 and 2048 (scored twice), d 129 and 160
      ((1, 2, 1025, 32), torch.float32), ((1, 4, 2048, 32), torch.float32),
      ((1, 2, 64, 129), torch.float32), ((1, 2, 64, 160), torch.bfloat16),
-     ((65536, 1, 2, 4), torch.float32)],
+     ((65536, 1, 2, 4), torch.float32),
+     # the tiled kernel's edges: 4096 keys on one head, an unaligned head
+     # with ragged tiles and chunks, the widest head it takes, bf16, more
+     # than 65535 batches; and a head past it (the long kernel, kept)
+     ((1, 1, 4096, 32), torch.float32), ((2, 2, 1100, 33), torch.float32),
+     ((1, 2, 1088, 128), torch.float32), ((1, 2, 1030, 64), torch.bfloat16),
+     ((1, 2, 1100, 129), torch.float32), ((65536, 1, 64, 4), torch.float32)],
 )
 def test_ring_step_kernel_matches_plain(cuda, shape, dtype, case):
     """The carry within rtol and atol 2e-5 of the plain version (f32 sums
@@ -631,6 +637,54 @@ def test_ring_step_is_one_kernel(cuda, case):
     (q, k, v, *carry), my, origin = ring_inputs((8, 4, 16, 32), case, cuda)
     kernels = _cuda_kernels(lambda: ra.ring_step(q, k, v, *carry, my, origin))
     assert len(kernels) == 1, kernels
+
+
+@pytest.mark.parametrize("shape, case, kernel", [
+    ((8, 4, 16, 32), "earlier", "ring_step_kernel<float>"),
+    ((8, 4, 64, 32), "diagonal", "ring_step_kernel<float>"),
+    ((1, 4, 256, 32), "earlier", "ring_step_tiled_kernel<float, 8, 2>"),
+    ((1, 4, 1024, 32), "diagonal", "ring_step_tiled_kernel<float, 8, 2>"),
+    ((1, 4, 2048, 32), "earlier", "ring_step_tiled_kernel<float, 8, 2>"),
+    ((1, 4, 4096, 32), "diagonal", "ring_step_tiled_kernel<float, 16, 2>"),
+    ((1, 2, 1030, 64), "earlier", "ring_step_tiled_kernel<float, 8, 4>"),
+    ((1, 2, 1088, 128), "diagonal", "ring_step_tiled_kernel<float, 8, 8>"),
+    ((65536, 1, 64, 4), "earlier", "ring_step_tiled_kernel<float, 16, 2>"),
+    ((1, 2, 1100, 129), "earlier", "ring_step_long_kernel<float>"),
+    ((65536, 1, 2, 4), "earlier", "ring_step_long_kernel<float>"),
+])
+def test_ring_step_path_by_shape(cuda, shape, case, kernel):
+    """Which kernel a shape takes: the row kernel under 256 keys; tiles
+    from there, 32 rows where 64-row tiles give fewer than 256 blocks, 2,
+    4 or 8 columns a thread, and from 64 keys for more than 65535 batches
+    or heads; the long kernel for heads over 128 and for shorter blocks of
+    more than 65535 batches or heads."""
+    (q, k, v, *carry), my, origin = ring_inputs(shape, case, cuda)
+    kernels = _cuda_kernels(lambda: ra.ring_step(q, k, v, *carry, my, origin))
+    assert len(kernels) == 1 and kernel in kernels[0], kernels
+
+
+@pytest.mark.parametrize("shape", [(8, 4, 16, 32), (1, 4, 4096, 32)])
+def test_ring_step_replays_from_a_cuda_graph(cuda, shape):
+    """A CUDA graph of one step, replayed twice on the same carry, gives
+    the eager step's bits each time: the launch makes no host sync and
+    keeps no state between calls."""
+    (q, k, v, *carry), my, origin = ring_inputs(shape, "diagonal", cuda)
+    eager = ra.ring_step(q, k, v, *(t.clone() for t in carry), my, origin)
+    live = [t.clone() for t in carry]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ra.ring_step(q, k, v, *live, my, origin)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ra.ring_step(q, k, v, *live, my, origin)
+    for _ in range(2):
+        for t, c in zip(live, carry):
+            t.copy_(c)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(live, eager))
 
 
 @pytest.mark.parametrize("case", ["earlier", "later"])

@@ -97,6 +97,21 @@ def test_ring_step_ref_matches_jax(case):
             assert np.array_equal(g.numpy(), before)
 
 
+@pytest.mark.parametrize("case", ["diagonal", "earlier", "first"])
+def test_ring_step_ref_matches_jax_past_1024_keys(case):
+    """The plain version, the card's yardstick for the tiled kernel, at a
+    block of 2048 keys: within rtol 1e-5 and atol 2e-5 of each part's max
+    (``carry_close(scaled=True)``'s rule), f32 sums over thousands of keys
+    taken in another order."""
+    arrays, my, origin = _step_inputs(case, shape=(1, 2, 2048, 32), seed=1)
+    want = [np.asarray(t) for t in _jax_step(*arrays, my, origin)]
+    got = ra.ring_step_ref(*(torch.tensor(a) for a in arrays), my, origin)
+    for name, g, w in zip(("m", "num", "den"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        atol = 2e-5 * float(np.abs(w[np.isfinite(w)]).max())
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=atol, err_msg=name)
+
+
 def test_ring_step_on_cpu_updates_the_carry_in_place():
     arrays, my, origin = _step_inputs("earlier")
     q, k, v, m, num, den = (torch.from_numpy(a.copy()) for a in arrays)
