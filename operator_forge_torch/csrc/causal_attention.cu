@@ -71,6 +71,11 @@
 // y = exp(score - max) / sum comes out with the first launch's bits,
 // stages its p and dS_bf tile in shared memory to transpose them, and sums
 // dK and dV in registers.
+//
+// That is the tiles path, the main path's.  The shapes it does not take
+// (heads over 128, rows whose spilled scores overflow shared memory, more
+// than 65535 batches or heads) go to the stream path, whose section below
+// says how it is built; causal_attention_tiles says which path a shape takes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,6 +83,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <climits>
 
 #include "common.cuh"
 
@@ -130,21 +136,22 @@ __device__ __forceinline__ float div_fast(float a, float b, float inv) {
 }
 
 // x[nt][i] /= b[i >> 1]: the divisor of the fragment's row g or g + 8
-__device__ __forceinline__ void divide(float (&x)[2][4], const float (&b)[2],
+template <int kN>
+__device__ __forceinline__ void divide(float (&x)[kN][4], const float (&b)[2],
                                        const float (&inv)[2]) {
   bool fast = true;
 #pragma unroll
-  for (int nt = 0; nt < 2; ++nt)
+  for (int nt = 0; nt < kN; ++nt)
 #pragma unroll
     for (int i = 0; i < 4; ++i) fast = fast & quotient_in_range(x[nt][i]);
   if (fast) {
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+    for (int nt = 0; nt < kN; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) x[nt][i] = div_fast(x[nt][i], b[i >> 1], inv[i >> 1]);
   } else {
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+    for (int nt = 0; nt < kN; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         x[nt][i] = quotient_in_range(x[nt][i]) ? div_fast(x[nt][i], b[i >> 1], inv[i >> 1])
@@ -232,12 +239,11 @@ __device__ __forceinline__ void product_abt(float (&acc)[2][4], const bf16* a, c
 }
 
 // out[kHdp / 8 n-tiles] += A B for one k-step of 16: A a 16-row fragment
-// in registers, B rows [k0, k0 + 16) of b (row-major [k][n], ld), read by
-// ldmatrix.trans.
-template <int kHdp>
+// in registers, B rows [k0, k0 + 16) of b (row-major [k][n], row stride
+// ld), read by ldmatrix.trans.
+template <int kHdp, int ld = ld_of<kHdp>()>
 __device__ __forceinline__ void product_ab(float (&out)[kHdp / 8][4], const uint32_t (&a)[4],
                                            const bf16* b, int k0) {
-  constexpr int ld = ld_of<kHdp>();
   const int lane = lane_id();
 #pragma unroll
   for (int dp = 0; dp < kHdp / 16; ++dp) {
@@ -251,11 +257,16 @@ __device__ __forceinline__ void product_ab(float (&out)[kHdp / 8][4], const uint
 
 // The A fragment of a 16 x 16 k-step from the two n-tiles of C fragments
 // that hold it, each value rounded to bf16.
+__device__ __forceinline__ void a_from_pair(uint32_t (&a)[4], const float (&c0)[4],
+                                            const float (&c1)[4]) {
+  a[0] = pack(c0[0], c0[1]);
+  a[1] = pack(c0[2], c0[3]);
+  a[2] = pack(c1[0], c1[1]);
+  a[3] = pack(c1[2], c1[3]);
+}
+
 __device__ __forceinline__ void a_from_c(uint32_t (&a)[4], const float (&c)[2][4]) {
-  a[0] = pack(c[0][0], c[0][1]);
-  a[1] = pack(c[0][2], c[0][3]);
-  a[2] = pack(c[1][0], c[1][1]);
-  a[3] = pack(c[1][2], c[1][3]);
+  a_from_pair(a, c[0], c[1]);
 }
 
 // sqrt(head_dim), the reference's divisor of the scores, and its
@@ -272,15 +283,16 @@ __device__ __forceinline__ Root root_of(int hd) {
 // s[nt] becomes the scores of 16 rows from their f32 products: bf16,
 // divided by sqrt(head_dim), or the fill where the key lies after the
 // query (rows q0 + frag_row, keys key0 + 8 nt + frag_col).
-__device__ __forceinline__ void to_scores(float (&s)[2][4], int q0, int key0,
+template <int kN>
+__device__ __forceinline__ void to_scores(float (&s)[kN][4], int q0, int key0,
                                           const Root& root) {
 #pragma unroll
-  for (int nt = 0; nt < 2; ++nt)
+  for (int nt = 0; nt < kN; ++nt)
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[nt][i] = round_bf16(s[nt][i]);
   divide(s, root.root, root.inv);
 #pragma unroll
-  for (int nt = 0; nt < 2; ++nt)
+  for (int nt = 0; nt < kN; ++nt)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       if (key0 + 8 * nt + frag_col(i) > q0 + frag_row(i)) s[nt][i] = kMasked;
@@ -335,21 +347,24 @@ __device__ __forceinline__ void across_warps(float (&v)[2], float* red) {
 }
 
 // s = exp(s - max) in place; exp(-1e30 - max) is exactly 0
-__device__ __forceinline__ void exps(float (&s)[2][4], const float (&m)[2]) {
+template <int kN>
+__device__ __forceinline__ void exps(float (&s)[kN][4], const float (&m)[2]) {
 #pragma unroll
-  for (int nt = 0; nt < 2; ++nt)
+  for (int nt = 0; nt < kN; ++nt)
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[nt][i] = expf(s[nt][i] - m[i >> 1]);
 }
 
 // y = e / sum in place, the sums of the fragment's two rows
-__device__ __forceinline__ void normalize(float (&e)[2][4], const float (&l)[2]) {
+template <int kN>
+__device__ __forceinline__ void normalize(float (&e)[kN][4], const float (&l)[2]) {
   const float inv_l[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
   divide(e, l, inv_l);
 }
 
 // y = exp(score - max) / sum in place over scores
-__device__ __forceinline__ void to_probs(float (&s)[2][4], const float (&m)[2],
+template <int kN>
+__device__ __forceinline__ void to_probs(float (&s)[kN][4], const float (&m)[2],
                                          const float (&l)[2]) {
   exps(s, m);
   normalize(s, l);
@@ -411,11 +426,12 @@ __device__ __forceinline__ void softmax_stats(float (&s)[2][4], float (&m)[2], f
 
 // dp becomes dS_bf before its rounding: y (dP - D) / sqrt(head_dim) where
 // the key is at or before the query, else 0
-__device__ __forceinline__ void to_grad_scores(float (&dp)[2][4], const float (&y)[2][4],
+template <int kN>
+__device__ __forceinline__ void to_grad_scores(float (&dp)[kN][4], const float (&y)[kN][4],
                                                const float (&big_d)[2], int q0, int key0,
                                                const Root& root) {
 #pragma unroll
-  for (int nt = 0; nt < 2; ++nt)
+  for (int nt = 0; nt < kN; ++nt)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       dp[nt][i] = key0 + 8 * nt + frag_col(i) <= q0 + frag_row(i)
@@ -811,342 +827,60 @@ causal_attention_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __rest
   store_warp_sum<kHdp>(partial + kWarps * kRows * ld, dv, dst + 2 * d, stride, kn, hd);
 }
 
-// ---- the rows path: long rows, wide heads, many heads or batches --------
+// ---- the stream path: long rows, wide heads, many heads or batches ------
 //
-// One warp per row, f32 FMAs, the other side's rows staged chunk by chunk
-// as f32 ([chunk][hd + 1]) and re-scored in every pass, so it takes any
-// sequence and any head up to kRowsMaxHeadDim.  The cast points are the
-// reference's, as above: score = bf16(q . k) / sqrt(hd) (an IEEE division),
-// a max pass, a sum pass, then y = exp(score - max) / sum and p = bf16(y).
-// Every sum over the other side runs in ascending order from 0, kept for
-// each of the row's columns in shared memory, so a launch repeats bit for
-// bit; the dot products are four FMA chains over the head, and a pair is
-// scored with the same bits wherever it is scored.
+// Every shape the tiles path does not take: rows whose spilled scores would
+// overflow shared memory, heads wider than kMaxHeadDim, more than 65535
+// batches or heads.  It computes what the tiles path computes, with the
+// same cast points, and keeps nothing that grows with the sequence or the
+// head in shared memory:
+// - every product is the tiles path's mma.sync m16n8k16 bf16 -> f32 from
+//   ldmatrix (.trans for the row-major B operands), on tiles staged by
+//   16-byte cp.async, or element by element where head_dim % 8 != 0 or a
+//   base is not 16-byte aligned;
+// - a block takes a tile of 64 rows, so each staged chunk of the other
+//   side serves 64 rows, not one: 4 warps of 16 rows (query rows in the
+//   forward and the backward's first launch, key rows in its second).  On
+//   a grid of fewer than two blocks an SM, a block has kG = 2 groups of
+//   them, which split each chunk of the other side (its keys, or its
+//   queries) and add their maxima, sums and partial outputs in group
+//   order: twice the warps, half of each one's walk.  The grid is flat,
+//   heaviest tiles first, so any batch and head count launch;
+// - the other side streams through shared memory in chunks (64 keys, or 32
+//   queries in the second launch) into two buffers, the next chunk in
+//   flight while the current one is used (`stream`);
+// - the head goes in column chunks of kC: a score sums over them in f32
+//   registers and rounds once at the end.  Up to heads of 256 one chunk
+//   holds the head (kResident): Q (and dO) stay in shared memory, K and V
+//   come whole-row, and an output product reads its B operand out of the
+//   score tiles.  Wider heads go 64 columns a chunk, Q and dO streaming
+//   beside K and V, and each output product stages its own B tile;
+// - an output (out, dQ, dK, dV) is a warp's register accumulator of kO
+//   columns: 128, or 256 for out and dQ at heads of 256 with two groups
+//   (whose warps hold half the scores); a wider head takes one more pass
+//   over the other side for each further kO columns (in the second launch
+//   a grid axis instead, since there no statistics pass would repeat);
+// - the softmax statistics come from passes: a max pass and a sum pass over
+//   every key, then the pass that uses p, each rescoring with the same
+//   operands in the same k-order, so every pass has the same bits.  The max
+//   pass takes the max of the raw f32 products and scores only that:
+//   bf16 rounding and the division by sqrt(head_dim) never decrease, so
+//   the score of the max is the max of the scores, bit for bit.  The
+//   backward's first launch writes each row's max, sum and D into stats
+//   [3, b, h, s] for the second, which rescores in the same roles (queries
+//   as the A rows, keys as the B columns) and stages its p and dS_bf tiles
+//   to transpose them.
+// Sums run in a fixed order and nothing is atomic, so a launch repeats bit
+// for bit.  Products of a pair the mask leaves, where the bound counts 2
+// forward and 5 backward: 4 (max, sum, p.v) and 11 (four rescorings, two
+// dO.v, dQ; rescoring, dO.v, dV, dK) where one chunk holds the head; each
+// further output pass rescores once more.
 
-constexpr int kRowsChunk = 64;          // most rows of the other side staged at a time
-constexpr int kRowsMaxHeadDim = 3072;   // the widest head whose rows fit in shared memory
-constexpr int kSmemFloats = of::kMaxSmemBytes / sizeof(float);
-
-// the score of a pair from the f32 product: bf16, then / sqrt(hd)
-__device__ __forceinline__ float score_of(float product, float root) {
-  return __fdiv_rn(round_bf16(product), root);
-}
-
-// dS_bf before the product: bf16(y (dP - D) / sqrt(hd))
-__device__ __forceinline__ float grad_score_of(float y, float dp, float big_d, float root) {
-  return round_bf16(__fdiv_rn(__fmul_rn(y, __fsub_rn(dp, big_d)), root));
-}
-
-// Where a block of the rows path is: its plane (head, batch) and first row.
-struct RowsBlock {
-  int head, batch, r0, rows;
-};
-
-__device__ __forceinline__ RowsBlock rows_block(size_t id, int row_blocks, int s, int n_heads) {
-  const size_t plane = id / row_blocks;
-  const int r0 = (int)(id % row_blocks) * kWarps;
-  return {(int)(plane % n_heads), (int)(plane / n_heads), r0, min(kWarps, s - r0)};
-}
-
-// The softmax statistics of query row `row` (q in qr, f32) over keys
-// [0, row] of the block's keys [0, n_keys): the max (from the fill, as the
-// tiles path takes it) and the sum, in two passes that stage K chunk by
-// chunk into ks.  Every warp of the block calls it.
-__device__ __forceinline__ void rows_stats(float& mx, float& l, const float* qr, float* ks,
-                                           const bf16* k_src, size_t stride, int row, bool live,
-                                           int n_keys, int hd, int chunk, bool vec, float root) {
-  const int lane = lane_id(), ld = hd + 1;
-  const int seen = live ? row + 1 : 0;
-  mx = kMasked;
-  for (int k0 = 0; k0 < n_keys; k0 += chunk) {
-    const int kn = min(chunk, n_keys - k0);
-    __syncthreads();
-    of::stage_rows(ks, k_src, stride, k0, kn, hd, ld, vec);
-    __syncthreads();
-    for (int j = k0 + lane; j < min(k0 + kn, seen); j += 32)
-      mx = fmaxf(mx, score_of(of::dot(qr, ks + (j - k0) * ld, hd), root));
-  }
-  mx = of::warp_max(mx);
-  l = 0.0f;
-  for (int k0 = 0; k0 < n_keys; k0 += chunk) {
-    const int kn = min(chunk, n_keys - k0);
-    __syncthreads();
-    of::stage_rows(ks, k_src, stride, k0, kn, hd, ld, vec);
-    __syncthreads();
-    for (int j = k0 + lane; j < min(k0 + kn, seen); j += 32)
-      l += expf(score_of(of::dot(qr, ks + (j - k0) * ld, hd), root) - mx);
-  }
-  l = of::warp_sum(l);
-}
-
-// Forward: one warp per query row; out = bf16(sum_j p_j v_j).
-__global__ void __launch_bounds__(kThreads)
-attention_rows_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int s, int n_heads,
-                      int hd, int chunk, int row_blocks, bool vec) {
-  extern __shared__ float fsmem[];
-  const int warp = threadIdx.x >> 5, lane = lane_id(), ld = hd + 1;
-  const RowsBlock at = rows_block(blockIdx.x, row_blocks, s, n_heads);
-  const int d = n_heads * hd;
-  const size_t stride = 3 * (size_t)d;
-  const bf16* base = qkv + (size_t)at.batch * s * stride + (size_t)at.head * hd;
-  float* ks = fsmem;                 // [chunk][ld]
-  float* vs = ks + chunk * ld;       // [chunk][ld]
-  float* qs = vs + chunk * ld;       // [kWarps][hd]
-  float* acc = qs + kWarps * hd;     // [kWarps][hd]
-  float* pbuf = acc + kWarps * hd;   // [kWarps][chunk]
-  const int row = at.r0 + warp, n_keys = at.r0 + at.rows;
-  const bool live = warp < at.rows;
-  float* qr = qs + warp * hd;
-  float* sum = acc + warp * hd;
-  float* pb = pbuf + warp * chunk;
-  if (live)
-    for (int c = lane; c < hd; c += 32) {
-      qr[c] = __bfloat162float(base[(size_t)row * stride + c]);
-      sum[c] = 0.0f;
-    }
-  const float root = sqrtf((float)hd);
-  float mx, l;
-  rows_stats(mx, l, qr, ks, base + d, stride, row, live, n_keys, hd, chunk, vec, root);
-  const int seen = live ? row + 1 : 0;
-  for (int k0 = 0; k0 < n_keys; k0 += chunk) {
-    const int kn = min(chunk, n_keys - k0), end = min(k0 + kn, seen);
-    __syncthreads();
-    of::stage_rows(ks, base + d, stride, k0, kn, hd, ld, vec);
-    of::stage_rows(vs, base + 2 * d, stride, k0, kn, hd, ld, vec);
-    __syncthreads();
-    if (k0 >= end) continue;
-    for (int j = k0 + lane; j < end; j += 32)
-      pb[j - k0] = round_bf16(
-          __fdiv_rn(expf(score_of(of::dot(qr, ks + (j - k0) * ld, hd), root) - mx), l));
-    __syncwarp();
-    for (int c = lane; c < hd; c += 32) {
-      float a = sum[c];
-      for (int j = k0; j < end; ++j) a = fmaf(pb[j - k0], vs[(j - k0) * ld + c], a);
-      sum[c] = a;
-    }
-    __syncwarp();
-  }
-  if (!live) return;
-  bf16* dst = out + ((size_t)at.batch * s + row) * d + (size_t)at.head * hd;
-  for (int c = lane; c < hd; c += 32) dst[c] = __float2bfloat16(sum[c]);
-}
-
-// Backward, first launch: one warp per query row.  Writes dQ and the row's
-// max, sum and D into stats [3][b][h][s] for the second launch.
-__global__ void __launch_bounds__(kThreads)
-attention_rows_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                         bf16* __restrict__ dqkv, float* __restrict__ stats, int b, int s,
-                         int n_heads, int hd, int chunk, int row_blocks, bool vec) {
-  extern __shared__ float fsmem[];
-  const int warp = threadIdx.x >> 5, lane = lane_id(), ld = hd + 1;
-  const RowsBlock at = rows_block(blockIdx.x, row_blocks, s, n_heads);
-  const int d = n_heads * hd;
-  const size_t stride = 3 * (size_t)d;
-  const bf16* base = qkv + (size_t)at.batch * s * stride + (size_t)at.head * hd;
-  const bf16* dbase = dout + (size_t)at.batch * s * d + (size_t)at.head * hd;
-  float* ks = fsmem;                  // [chunk][ld]
-  float* vs = ks + chunk * ld;        // [chunk][ld]
-  float* own = vs + chunk * ld;       // [kWarps][2][hd]  q and dO
-  float* acc = own + 2 * kWarps * hd; // [kWarps][hd]
-  float* bufs = acc + kWarps * hd;    // [kWarps][chunk]
-  const int row = at.r0 + warp, n_keys = at.r0 + at.rows;
-  const bool live = warp < at.rows;
-  float* qr = own + 2 * warp * hd;
-  float* dor = qr + hd;
-  float* sum = acc + warp * hd;
-  float* dsb = bufs + warp * chunk;
-  if (live)
-    for (int c = lane; c < hd; c += 32) {
-      qr[c] = __bfloat162float(base[(size_t)row * stride + c]);
-      dor[c] = __bfloat162float(dbase[(size_t)row * d + c]);
-      sum[c] = 0.0f;
-    }
-  const float root = sqrtf((float)hd);
-  float mx, l;
-  rows_stats(mx, l, qr, ks, base + d, stride, row, live, n_keys, hd, chunk, vec, root);
-  const int seen = live ? row + 1 : 0;
-  // D = sum_j y_j dP_j, dP = bf16(dO . v)
-  float big_d = 0.0f;
-  for (int k0 = 0; k0 < n_keys; k0 += chunk) {
-    const int kn = min(chunk, n_keys - k0);
-    __syncthreads();
-    of::stage_rows(ks, base + d, stride, k0, kn, hd, ld, vec);
-    of::stage_rows(vs, base + 2 * d, stride, k0, kn, hd, ld, vec);
-    __syncthreads();
-    for (int j = k0 + lane; j < min(k0 + kn, seen); j += 32) {
-      const float y =
-          __fdiv_rn(expf(score_of(of::dot(qr, ks + (j - k0) * ld, hd), root) - mx), l);
-      big_d = fmaf(y, round_bf16(of::dot(dor, vs + (j - k0) * ld, hd)), big_d);
-    }
-  }
-  big_d = of::warp_sum(big_d);
-  // dQ = bf16(sum_j dS_bf_j k_j)
-  for (int k0 = 0; k0 < n_keys; k0 += chunk) {
-    const int kn = min(chunk, n_keys - k0), end = min(k0 + kn, seen);
-    __syncthreads();
-    of::stage_rows(ks, base + d, stride, k0, kn, hd, ld, vec);
-    of::stage_rows(vs, base + 2 * d, stride, k0, kn, hd, ld, vec);
-    __syncthreads();
-    if (k0 >= end) continue;
-    for (int j = k0 + lane; j < end; j += 32) {
-      const float y =
-          __fdiv_rn(expf(score_of(of::dot(qr, ks + (j - k0) * ld, hd), root) - mx), l);
-      dsb[j - k0] = grad_score_of(y, round_bf16(of::dot(dor, vs + (j - k0) * ld, hd)), big_d,
-                                  root);
-    }
-    __syncwarp();
-    for (int c = lane; c < hd; c += 32) {
-      float a = sum[c];
-      for (int j = k0; j < end; ++j) a = fmaf(dsb[j - k0], ks[(j - k0) * ld + c], a);
-      sum[c] = a;
-    }
-    __syncwarp();
-  }
-  if (!live) return;
-  bf16* dst = dqkv + ((size_t)at.batch * s + row) * stride + (size_t)at.head * hd;
-  for (int c = lane; c < hd; c += 32) dst[c] = __float2bfloat16(sum[c]);
-  if (lane == 0) {
-    const size_t plane = (size_t)b * n_heads * s;
-    const size_t r = ((size_t)at.batch * n_heads + at.head) * s + row;
-    stats[r] = mx;
-    stats[plane + r] = l;
-    stats[2 * plane + r] = big_d;
-  }
-}
-
-// Backward, second launch: one warp per key row, over the queries at or
-// after it: dK = bf16(sum_q dS_bf q), dV = bf16(sum_q p dO).
-__global__ void __launch_bounds__(kThreads)
-attention_rows_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                          const float* __restrict__ stats, bf16* __restrict__ dqkv, int b, int s,
-                          int n_heads, int hd, int chunk, int row_blocks, bool vec) {
-  extern __shared__ float fsmem[];
-  const int warp = threadIdx.x >> 5, lane = lane_id(), ld = hd + 1;
-  const RowsBlock at = rows_block(blockIdx.x, row_blocks, s, n_heads);
-  const int d = n_heads * hd;
-  const size_t stride = 3 * (size_t)d;
-  const bf16* base = qkv + (size_t)at.batch * s * stride + (size_t)at.head * hd;
-  const bf16* dbase = dout + (size_t)at.batch * s * d + (size_t)at.head * hd;
-  const size_t plane = (size_t)b * n_heads * s;
-  const float* row_stats = stats + ((size_t)at.batch * n_heads + at.head) * s;
-  float* qs = fsmem;                   // [chunk][ld]  queries
-  float* dos = qs + chunk * ld;        // [chunk][ld]  their dO
-  float* own = dos + chunk * ld;       // [kWarps][2][hd]  k and v
-  float* acc = own + 2 * kWarps * hd;  // [kWarps][2][hd]  dK and dV
-  float* bufs = acc + 2 * kWarps * hd; // [kWarps][2][chunk]  p and dS_bf
-  float* st = bufs + 2 * kWarps * chunk;  // [3][chunk]  the queries' max, sum, D
-  const int row = at.r0 + warp;
-  const bool live = warp < at.rows;
-  float* kr = own + 2 * warp * hd;
-  float* vr = kr + hd;
-  float* dk = acc + 2 * warp * hd;
-  float* dv = dk + hd;
-  float* pb = bufs + 2 * warp * chunk;
-  float* db = pb + chunk;
-  if (live)
-    for (int c = lane; c < hd; c += 32) {
-      kr[c] = __bfloat162float(base[(size_t)row * stride + d + c]);
-      vr[c] = __bfloat162float(base[(size_t)row * stride + 2 * d + c]);
-      dk[c] = dv[c] = 0.0f;
-    }
-  const float root = sqrtf((float)hd);
-  const int first = live ? row : s;  // the queries that see this key: [row, s)
-  for (int q0 = at.r0; q0 < s; q0 += chunk) {
-    const int qn = min(chunk, s - q0);
-    __syncthreads();
-    of::stage_rows(qs, base, stride, q0, qn, hd, ld, vec);
-    of::stage_rows(dos, dbase, d, q0, qn, hd, ld, vec);
-    for (int i = threadIdx.x; i < qn; i += blockDim.x) {
-      st[i] = row_stats[q0 + i];
-      st[chunk + i] = row_stats[plane + q0 + i];
-      st[2 * chunk + i] = row_stats[2 * plane + q0 + i];
-    }
-    __syncthreads();
-    const int from = max(q0, first), to = q0 + qn;
-    if (from >= to) continue;
-    for (int i = from + lane; i < to; i += 32) {
-      const int o = i - q0;
-      const float y = __fdiv_rn(
-          expf(score_of(of::dot(qs + o * ld, kr, hd), root) - st[o]), st[chunk + o]);
-      pb[o] = round_bf16(y);
-      db[o] = grad_score_of(y, round_bf16(of::dot(dos + o * ld, vr, hd)), st[2 * chunk + o],
-                            root);
-    }
-    __syncwarp();
-    for (int c = lane; c < hd; c += 32) {
-      float a_k = dk[c], a_v = dv[c];
-      for (int i = from; i < to; ++i) {
-        a_k = fmaf(db[i - q0], qs[(i - q0) * ld + c], a_k);
-        a_v = fmaf(pb[i - q0], dos[(i - q0) * ld + c], a_v);
-      }
-      dk[c] = a_k;
-      dv[c] = a_v;
-    }
-    __syncwarp();
-  }
-  if (!live) return;
-  bf16* dst = dqkv + ((size_t)at.batch * s + row) * stride + (size_t)at.head * hd;
-  for (int c = lane; c < hd; c += 32) {
-    dst[d + c] = __float2bfloat16(dk[c]);
-    dst[2 * d + c] = __float2bfloat16(dv[c]);
-  }
-}
-
-// The rows path's launch shape: rows of other side staged at a time, and
-// the grid's row blocks a plane (0 where either does not fit).
-struct RowsShape {
-  int chunk, row_blocks;
-  size_t smem;
-};
-
-RowsShape rows_shape(int b, int s, int n_heads, int hd, int fixed, int per_row) {
-  const long long row_blocks = (s + kWarps - 1) / kWarps;
-  int chunk = min(min(kRowsChunk, s), (kSmemFloats - fixed) / per_row);
-  if (hd > kRowsMaxHeadDim || chunk < 1 || row_blocks * b * n_heads >= (1LL << 31))
-    return {0, 0, 0};
-  return {chunk, (int)row_blocks, sizeof(float) * ((size_t)fixed + (size_t)chunk * per_row)};
-}
-
-bool rows_vec(int hd, const void* a, const void* b, const void* c) {
-  return hd % 8 == 0 && of::aligned16(a, b, c);
-}
-
-cudaError_t launch_rows_fwd(const bf16* qkv, bf16* out, int b, int s, int n_heads, int hd,
-                            cudaStream_t st) {
-  // fixed: q rows and sums; a staged key: k, v and a p of each warp
-  const RowsShape shape = rows_shape(b, s, n_heads, hd, 2 * kWarps * hd, 2 * (hd + 1) + kWarps);
-  if (shape.chunk == 0) return cudaErrorInvalidValue;
-  const cudaError_t err = of::set_attribute_once(
-      reinterpret_cast<const void*>(attention_rows_kernel),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, of::kMaxSmemBytes);
-  if (err != cudaSuccess) return err;
-  attention_rows_kernel<<<shape.row_blocks * b * n_heads, kThreads, shape.smem, st>>>(
-      qkv, out, s, n_heads, hd, shape.chunk, shape.row_blocks, rows_vec(hd, qkv, out, qkv));
-  return cudaGetLastError();
-}
-
-cudaError_t launch_rows_bwd(const bf16* qkv, const bf16* dout, bf16* dqkv, float* stats, int b,
-                            int s, int n_heads, int hd, cudaStream_t st) {
-  const RowsShape dq = rows_shape(b, s, n_heads, hd, 3 * kWarps * hd, 2 * (hd + 1) + kWarps);
-  const RowsShape dkv =
-      rows_shape(b, s, n_heads, hd, 4 * kWarps * hd, 2 * (hd + 1) + 2 * kWarps + 3);
-  if (dq.chunk == 0 || dkv.chunk == 0) return cudaErrorInvalidValue;
-  cudaError_t err = of::set_attribute_once(reinterpret_cast<const void*>(attention_rows_dq_kernel),
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           of::kMaxSmemBytes);
-  if (err == cudaSuccess)
-    err = of::set_attribute_once(reinterpret_cast<const void*>(attention_rows_dkv_kernel),
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, of::kMaxSmemBytes);
-  if (err != cudaSuccess) return err;
-  const bool vec = rows_vec(hd, qkv, dout, dqkv);
-  attention_rows_dq_kernel<<<dq.row_blocks * b * n_heads, kThreads, dq.smem, st>>>(
-      qkv, dout, dqkv, stats, b, s, n_heads, hd, dq.chunk, dq.row_blocks, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attention_rows_dkv_kernel<<<dkv.row_blocks * b * n_heads, kThreads, dkv.smem, st>>>(
-      qkv, dout, stats, dqkv, b, s, n_heads, hd, dkv.chunk, dkv.row_blocks, vec);
-  return cudaGetLastError();
-}
+constexpr int kSTile = 64;               // rows of a block's tile
+constexpr int kSThreads = 128;           // a block's threads for each group of warps
+constexpr int kSChunk = 64;              // keys a chunk of a query tile's walk
+constexpr int kSQueries = 32;            // queries a chunk of a key tile's walk
+constexpr int kSp = 24;                  // row stride of the staged p, dS_bf: 16 + 8
 
 // Let a kernel take as much dynamic shared memory as a block may have.
 template <typename Kernel>
@@ -1154,6 +888,781 @@ cudaError_t allow_smem(Kernel kernel) {
   return of::set_attribute_once(reinterpret_cast<const void*>(kernel),
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, of::kMaxSmemBytes);
 }
+
+template <int kN>
+__device__ __forceinline__ void zero(float (&x)[kN][4]) {
+#pragma unroll
+  for (int nt = 0; nt < kN; ++nt) x[nt][0] = x[nt][1] = x[nt][2] = x[nt][3] = 0.0f;
+}
+
+// Run stages [0, n): issue(t) starts stage t's copies into buffer t & 1,
+// compute(t) uses them, with stage t + 1 in flight.  Every thread of the
+// block calls it.
+template <typename Issue, typename Compute>
+__device__ __forceinline__ void stream(int n, const Issue& issue, const Compute& compute) {
+  issue(0);
+  cp_async_commit();
+  for (int t = 0; t < n; ++t) {
+    if (t + 1 < n) {
+      issue(t + 1);  // the buffer compute(t - 1) read, which every warp is done with
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    compute(t);
+    __syncthreads();
+  }
+}
+
+// acc[2 np], acc[2 np + 1] += A B^T over kC columns for B's 16-row pairs
+// np < live: A 16 rows at a, B at b (both row-major, ld_of<kC>), k-steps
+// ascending, so the same operands give the same bits in every pass.
+template <int kC, int kPairs, bool kAll = false>
+__device__ __forceinline__ void mma_abt_pairs(float (&acc)[2 * kPairs][4], const bf16* a,
+                                              const bf16* b, int live) {
+  constexpr int ld = ld_of<kC>();
+  const int lane = lane_id();
+#pragma unroll
+  for (int kk = 0; kk < kC; kk += 16) {
+    uint32_t af[4];
+    ldsm_x4(af, a + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + kk + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < kPairs; ++np)
+      if (kAll || np < live) {
+        uint32_t bf[4];
+        ldsm_x4(bf, b + (16 * np + (lane & 7) + (lane >> 4) * 8) * ld + kk + ((lane >> 3) & 1) * 8);
+        mma(acc[2 * np], af, bf[0], bf[1]);
+        mma(acc[2 * np + 1], af, bf[2], bf[3]);
+      }
+  }
+}
+
+// (a chunk whose pairs are all live, nearly every one, runs without a test
+// in the loop, so the compiler can issue its loads ahead)
+template <int kC, int kPairs>
+__device__ __forceinline__ void mma_abt(float (&acc)[2 * kPairs][4], const bf16* a, const bf16* b,
+                                        int live) {
+  if (live == kPairs)
+    mma_abt_pairs<kC, kPairs, true>(acc, a, b, live);
+  else
+    mma_abt_pairs<kC, kPairs>(acc, a, b, live);
+}
+
+// s[nt] becomes the scores of 16 rows from their f32 products, as
+// to_scores makes them; the mask is looked at only where the keys [key0,
+// key0 + 8 kN) reach past the first row r0 (near the diagonal).
+template <int kN>
+__device__ __forceinline__ void stream_scores(float (&s)[kN][4], int r0, int key0,
+                                              const Root& root) {
+#pragma unroll
+  for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[nt][i] = round_bf16(s[nt][i]);
+  divide(s, root.root, root.inv);
+  if (key0 + 8 * kN - 1 > r0) {
+#pragma unroll
+    for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (key0 + 8 * nt + frag_col(i) > r0 + frag_row(i)) s[nt][i] = kMasked;
+  }
+}
+
+// dp becomes dS_bf before its rounding, as to_grad_scores makes it, the
+// mask looked at only near the diagonal
+template <int kN>
+__device__ __forceinline__ void stream_grad_scores(float (&dp)[kN][4], const float (&y)[kN][4],
+                                                   const float (&big_d)[2], int r0, int key0,
+                                                   const Root& root) {
+  const bool near = key0 + 8 * kN - 1 > r0;
+#pragma unroll
+  for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      dp[nt][i] = !near || key0 + 8 * nt + frag_col(i) <= r0 + frag_row(i)
+                      ? y[nt][i] * (dp[nt][i] - big_d[i >> 1]) : 0.0f;
+  divide(dp, root.root, root.inv);
+}
+
+// The 16-key pairs of a 64-key chunk at key0 that any of rows [r0, r0 + 16)
+// sees; the rest are masked for all of them.
+__device__ __forceinline__ int live_pairs(int r0, int key0) {
+  const int x = r0 + 15 - key0;
+  return x < 0 ? 0 : min(4, x / 16 + 1);
+}
+
+// A warp's 16-row accumulator of kO columns, rounded to bf16, into dst (its
+// first row and column; rows `stride` apart) in rows < rows and columns <
+// cols.
+template <int kO>
+__device__ __forceinline__ void store_rows(const float (&c)[kO / 8][4], bf16* dst, size_t stride,
+                                           int rows, int cols) {
+#pragma unroll
+  for (int nt = 0; nt < kO / 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = frag_row(i), col = 8 * nt + frag_col(i);
+      if (r < rows && col < cols) dst[(size_t)r * stride + col] = __float2bfloat16(c[nt][i]);
+    }
+}
+
+// Where a stream block is: its tile and plane (head, batch), and its chunk
+// of output columns.  Ids run over the planes fastest, then the output
+// chunks, then the tiles by falling cost, so the heaviest start first.
+struct StreamBlock {
+  int tile, head, batch, out;
+};
+
+__device__ __forceinline__ StreamBlock stream_block(int tiles, int planes, int n_heads, int nout,
+                                                    bool last_heaviest) {
+  const int id = blockIdx.x, plane = id % planes, rest = id / planes;
+  const int out = rest % nout, rank = rest / nout;
+  return {last_heaviest ? tiles - 1 - rank : rank, plane % n_heads, plane / n_heads, out};
+}
+
+// acc, a warp's partial output, becomes the sum of the two groups' (group
+// 0's first) in group 0's warps, through `partial` ([kO / 2][128] f32,
+// each thread's own slots); the caller has made sure that no thread still
+// reads what partial overlays.  Returns whether this warp holds the sum.
+template <int kO>
+__device__ __forceinline__ bool add_groups(float (&acc)[kO / 8][4], float* partial) {
+  const int slot = threadIdx.x & (kSThreads - 1);
+  const bool upper = threadIdx.x >= kSThreads;
+  if (upper) {
+#pragma unroll
+    for (int nt = 0; nt < kO / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) partial[(4 * nt + i) * kSThreads + slot] = acc[nt][i];
+  }
+  __syncthreads();
+  if (upper) return false;
+#pragma unroll
+  for (int nt = 0; nt < kO / 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] += partial[(4 * nt + i) * kSThreads + slot];
+  return true;
+}
+
+// A query tile walking its keys: at stage t key chunk t / nc and column
+// chunk t % nc, K (and V for the backward) in two buffers; Q (and dO)
+// resident where one column chunk holds the head (nc == 1), else streamed
+// beside them.  Its 4 kG warps are 4 row groups of 16 rows by kG key
+// groups, group g taking keys [64 g / kG, 64 (g + 1) / kG) of each chunk;
+// with two groups a row's maxima, sums and partial outputs meet through
+// shared memory in group order.  The forward and the backward's first
+// launch share it, so both see the same scores.
+template <int kC, int kG>
+struct QueryTile {
+  static constexpr int kLd = ld_of<kC>(), kTile = kSTile * kLd;
+  static constexpr int kPairs = 4 / kG, kN = 2 * kPairs;  // a warp's 16-key pairs, n-tiles
+  bf16 *qs, *dos, *ks, *vs;  // staged tiles
+  float* red;                // [3][2][64]: the groups' partial maxima, sums, D
+  const bf16 *q, *k, *v, *dout;  // column 0 of the head in row 0 of the plane
+  size_t stride, dstride;    // row strides of q, k, v and of dO
+  int q0, rows, n_keys, nc, hd;
+  int wq0, kb;               // the warp's first row; its group's first key of a chunk
+  bool vec;
+  Root root;
+
+  __device__ int stages() const { return (n_keys + kSChunk - 1) / kSChunk * nc; }
+
+  // Q (and dO with kGrad) where they stay resident; the caller's first
+  // stage commits them
+  template <bool kGrad>
+  __device__ void issue_resident() const {
+    if (nc > 1) return;
+    stage<kC, kSThreads * kG>(qs, q, stride, q0, rows, kSTile, hd, vec, threadIdx.x);
+    if (kGrad) stage<kC, kSThreads * kG>(dos, dout, dstride, q0, rows, kSTile, hd, vec, threadIdx.x);
+  }
+
+  // stage t's copies: K (and V with kGrad), and Q (and dO) where they stream
+  template <bool kGrad>
+  __device__ void issue(int t) const {
+    const int j = t / nc, c = t - j * nc, at = (t & 1) * kTile, key0 = j * kSChunk;
+    const int n = min(kSChunk, n_keys - key0), c0 = c * kC;
+    constexpr int kT = kSThreads * kG;
+    stage<kC, kT>(ks + at, k + c0, stride, key0, n, kSChunk, hd - c0, vec, threadIdx.x);
+    if (kGrad) stage<kC, kT>(vs + at, v + c0, stride, key0, n, kSChunk, hd - c0, vec, threadIdx.x);
+    if (nc > 1) {
+      stage<kC, kT>(qs + at, q + c0, stride, q0, rows, kSTile, hd - c0, vec, threadIdx.x);
+      if (kGrad)
+        stage<kC, kT>(dos + at, dout + c0, dstride, q0, rows, kSTile, hd - c0, vec, threadIdx.x);
+    }
+  }
+
+  // Stage t's products: sc += the warp's rows' q . k over this column chunk
+  // for its group's keys (and dp += dO . v with kGrad); at the chunk's
+  // last column chunk sc becomes their scores (with kRaw the raw products,
+  // -inf where masked) and on(key chunk, the group's first key, live
+  // pairs) runs.
+  template <bool kGrad, typename On, bool kRaw = false>
+  __device__ void score(float (&sc)[kN][4], float (&dp)[kN][4], int t, const On& on) const {
+    const int j = t / nc, c = t - j * nc, at = (t & 1) * kTile, key0 = j * kSChunk + kb;
+    const int live = min(kPairs, live_pairs(wq0, key0));
+    const int own = (nc > 1 ? at : 0) + (wq0 - q0) * kLd;
+    if (c == 0) {
+      zero(sc);
+      if (kGrad) zero(dp);
+    }
+    mma_abt<kC, kPairs>(sc, qs + own, ks + at + kb * kLd, live);
+    if (kGrad) mma_abt<kC, kPairs>(dp, dos + own, vs + at + kb * kLd, live);
+    if (c == nc - 1) {
+      if (!kRaw) {
+        stream_scores(sc, wq0, key0, root);
+      } else if (key0 + 8 * kN - 1 > wq0) {
+#pragma unroll
+        for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (key0 + 8 * nt + frag_col(i) > wq0 + frag_row(i)) sc[nt][i] = -INFINITY;
+      }
+      on(j, key0, live);
+    }
+  }
+
+  // v, the warp's value for the thread's two rows over its group's keys
+  // (reduced over the quad), becomes the max or the sum of the two
+  // groups', group 0's first; `which` picks one of red's three areas, each
+  // used once a launch.
+  template <bool kMax>
+  __device__ void across_groups(float (&v)[2], int which) const {
+    if (kG == 1) return;
+    float* area = red + which * 2 * kSTile;
+    const int row = wq0 - q0 + frag_row(0);
+    if ((lane_id() & 3) == 0) {
+      area[(kb ? kSTile : 0) + row] = v[0];
+      area[(kb ? kSTile : 0) + row + 8] = v[1];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float a = area[row + 8 * h], b = area[kSTile + row + 8 * h];
+      v[h] = kMax ? fmaxf(a, b) : a + b;
+    }
+  }
+
+  // The max and the sum over every key of the thread's two rows: two
+  // passes (the first stage also commits what issue_resident staged).  The
+  // max is taken over the raw products, then scored; each row sees key 0.
+  __device__ void stats(float (&m)[2], float (&l)[2], float (&sc)[kN][4]) const {
+    float unused[kN][4];
+    const int n = stages();
+    float raw[2] = {-INFINITY, -INFINITY};
+    stream(n, [&](int t) { this->template issue<false>(t); }, [&](int t) {
+      auto on = [&](int, int, int) {
+#pragma unroll
+        for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) raw[i >> 1] = fmaxf(raw[i >> 1], sc[nt][i]);
+      };
+      this->template score<false, decltype(on), true>(sc, unused, t, on);
+    });
+    raw[0] = quad_max(raw[0]);
+    raw[1] = quad_max(raw[1]);
+    across_groups<true>(raw, 0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // the score of the max, as to_scores takes it
+      const float x = round_bf16(raw[h]);
+      m[h] = quotient_in_range(x) ? div_fast(x, root.root[h], root.inv[h])
+                                  : __fdiv_rn(x, root.root[h]);
+    }
+    l[0] = l[1] = 0.0f;
+    stream(n, [&](int t) { this->template issue<false>(t); }, [&](int t) {
+      this->template score<false>(sc, unused, t, [&](int, int, int) {
+        exps(sc, m);
+#pragma unroll
+        for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) l[i >> 1] += sc[nt][i];
+      });
+    });
+    l[0] = quad_sum(l[0]);
+    l[1] = quad_sum(l[1]);
+    across_groups<false>(l, 1);
+  }
+
+  // the warp's place: rows [wq0, wq0 + 16), keys kb + [0, 64 / kG) of a
+  // chunk
+  __device__ void place(int warp) {
+    wq0 = q0 + 16 * (warp & 3);
+    kb = 64 / kG * (warp >> 2);
+  }
+};
+
+// Forward: one block per (query tile, head, batch); out = bf16(sum p v).
+template <int kC, int kO, int kG>
+__global__ void __launch_bounds__(kSThreads * kG, 3 - kG)
+attention_stream_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int s, int n_heads,
+                        int hd, int tiles, int planes, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kResident = kC >= kO;  // one column chunk holds the head
+  constexpr int kTile = QueryTile<kC, kG>::kTile, kOut = kSTile * ld_of<kO>();
+  constexpr int kN = QueryTile<kC, kG>::kN;
+  const StreamBlock at = stream_block(tiles, planes, n_heads, 1, true);
+  const int d = n_heads * hd;
+  const size_t stride = 3 * (size_t)d;
+  const int q0 = at.tile * kSTile, rows = min(kSTile, s - q0);
+  const bf16* base = qkv + (size_t)at.batch * s * stride + (size_t)at.head * hd;
+  QueryTile<kC, kG> w;
+  w.qs = reinterpret_cast<bf16*>(smem);        // Q: [1 or 2][64][ld]
+  w.ks = w.qs + (kResident ? 1 : 2) * kTile;   // K: [2][64][ld]
+  bf16* vs = w.ks + 2 * kTile;                 // V's output columns: [2][64][ld_of<kO>]
+  w.red = reinterpret_cast<float*>(vs + 2 * kOut);
+  w.dos = w.vs = nullptr;
+  w.q = base, w.k = base + d, w.v = base + 2 * d, w.dout = nullptr;
+  w.stride = stride, w.dstride = 0;
+  w.q0 = q0, w.rows = rows, w.n_keys = q0 + rows, w.hd = hd;
+  w.place(threadIdx.x >> 5);
+  w.nc = kResident ? 1 : (hd + kC - 1) / kC;
+  w.vec = vec, w.root = root_of(hd);
+
+  float sc[kN][4], m[2], l[2];
+  w.template issue_resident<false>();
+  w.stats(m, l, sc);
+  const int n = w.stages();
+  bf16* dst = out + ((size_t)at.batch * s + w.wq0) * d + (size_t)at.head * hd;
+  for (int o0 = 0; o0 < hd; o0 += kO) {
+    float acc[kO / 8][4];
+    zero(acc);
+    stream(n, [&](int t) {
+      w.template issue<false>(t);
+      const int j = t / w.nc, key0 = j * kSChunk;
+      if (t - j * w.nc == w.nc - 1)  // the chunk's values, with its last column chunk
+        stage<kO, kSThreads * kG>(vs + (j & 1) * kOut, w.v + o0, stride, key0,
+                             min(kSChunk, w.n_keys - key0), kSChunk, hd - o0, vec, threadIdx.x);
+    }, [&](int t) {
+      w.template score<false>(sc, sc, t, [&](int j, int, int live) {
+        to_probs(sc, m, l);
+        const bf16* vt = vs + (j & 1) * kOut;
+#pragma unroll
+        for (int kk = 0; kk < kN / 2; ++kk)
+          if (kk < live) {  // p = bf16(y) from the C fragments into the A fragment
+            uint32_t a[4];
+            a_from_pair(a, sc[2 * kk], sc[2 * kk + 1]);
+            product_ab<kO>(acc, a, vt, w.kb + 16 * kk);
+          }
+      });
+    });
+    if (kG == 1 || add_groups<kO>(acc, reinterpret_cast<float*>(w.ks)))
+      store_rows<kO>(acc, dst + o0, d, q0 + rows - w.wq0, hd - o0);
+    __syncthreads();  // partial is read before the next pass stages over it
+  }
+}
+
+// Backward, first launch: one block per (query tile, head, batch).  Writes
+// dQ and each row's max, sum and D into stats [3][b][h][s].
+template <int kC, int kO, int kG>
+__global__ void __launch_bounds__(kSThreads * kG, 3 - kG)
+attention_stream_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                           bf16* __restrict__ dqkv, float* __restrict__ stats, int s,
+                           int n_heads, int hd, int tiles, int planes, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kResident = kC >= kO;
+  constexpr int kTile = QueryTile<kC, kG>::kTile, kOut = kSTile * ld_of<kO>();
+  constexpr int kN = QueryTile<kC, kG>::kN;
+  const StreamBlock at = stream_block(tiles, planes, n_heads, 1, true);
+  const int d = n_heads * hd;
+  const size_t stride = 3 * (size_t)d;
+  const int q0 = at.tile * kSTile, rows = min(kSTile, s - q0);
+  const bf16* base = qkv + (size_t)at.batch * s * stride + (size_t)at.head * hd;
+  QueryTile<kC, kG> w;
+  w.qs = reinterpret_cast<bf16*>(smem);        // Q: [1 or 2][64][ld]
+  w.dos = w.qs + (kResident ? 1 : 2) * kTile;  // dO: [1 or 2][64][ld]
+  w.ks = w.dos + (kResident ? 1 : 2) * kTile;  // K: [2][64][ld]
+  w.vs = w.ks + 2 * kTile;                     // V: [2][64][ld]
+  bf16* kos = w.vs + 2 * kTile;                // K's output columns: [2][64][ld_of<kO>], streaming
+  w.red = reinterpret_cast<float*>(kos + (kResident ? 0 : 2 * kOut));
+  w.q = base, w.k = base + d, w.v = base + 2 * d;
+  w.dout = dout + (size_t)at.batch * s * d + (size_t)at.head * hd;
+  w.stride = stride, w.dstride = d;
+  w.q0 = q0, w.rows = rows, w.n_keys = q0 + rows, w.hd = hd;
+  w.place(threadIdx.x >> 5);
+  w.nc = kResident ? 1 : (hd + kC - 1) / kC;
+  w.vec = vec, w.root = root_of(hd);
+
+  float sc[kN][4], dp[kN][4], m[2], l[2];
+  w.template issue_resident<true>();
+  w.stats(m, l, sc);
+  const int n = w.stages();
+
+  // D = sum_k y dP over the unmasked keys, dP = bf16(dO . v)
+  float big_d[2] = {0.0f, 0.0f};
+  stream(n, [&](int t) { w.template issue<true>(t); }, [&](int t) {
+    w.template score<true>(sc, dp, t, [&](int, int key0, int) {
+      to_probs(sc, m, l);
+#pragma unroll
+      for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dp[nt][i] = round_bf16(dp[nt][i]);
+          if (key0 + 8 * kN - 1 <= w.wq0 || key0 + 8 * nt + frag_col(i) <= w.wq0 + frag_row(i))
+            big_d[i >> 1] = fmaf(sc[nt][i], dp[nt][i], big_d[i >> 1]);
+        }
+    });
+  });
+  big_d[0] = quad_sum(big_d[0]);
+  big_d[1] = quad_sum(big_d[1]);
+  w.template across_groups<false>(big_d, 2);
+
+  // dS_bf = bf16(where(mask, y (dP - D), 0) / root), then dQ = bf16(dS_bf K)
+  bf16* dst = dqkv + ((size_t)at.batch * s + w.wq0) * stride + (size_t)at.head * hd;
+  for (int o0 = 0; o0 < hd; o0 += kO) {
+    float acc[kO / 8][4];
+    zero(acc);
+    stream(n, [&](int t) {
+      w.template issue<true>(t);
+      const int j = t / w.nc, key0 = j * kSChunk;
+      if (!kResident && t - j * w.nc == w.nc - 1)  // the chunk's keys' output columns
+        stage<kO, kSThreads * kG>(kos + (j & 1) * kOut, w.k + o0, stride, key0,
+                             min(kSChunk, w.n_keys - key0), kSChunk, hd - o0, vec, threadIdx.x);
+    }, [&](int t) {
+      w.template score<true>(sc, dp, t, [&](int j, int key0, int live) {
+        to_probs(sc, m, l);
+#pragma unroll
+        for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dp[nt][i] = round_bf16(dp[nt][i]);
+        stream_grad_scores(dp, sc, big_d, w.wq0, key0, w.root);
+#pragma unroll
+        for (int kk = 0; kk < kN / 2; ++kk)
+          if (kk < live) {
+            uint32_t a[4];
+            a_from_pair(a, dp[2 * kk], dp[2 * kk + 1]);
+            if (kResident)  // stage t is key chunk j, its K tile whole-row
+              product_ab<kO, ld_of<kC>()>(acc, a, w.ks + (j & 1) * kTile + o0, w.kb + 16 * kk);
+            else
+              product_ab<kO>(acc, a, kos + (j & 1) * kOut, w.kb + 16 * kk);
+          }
+      });
+    });
+    if (kG == 1 || add_groups<kO>(acc, reinterpret_cast<float*>(w.ks)))
+      store_rows<kO>(acc, dst + o0, stride, q0 + rows - w.wq0, hd - o0);
+    __syncthreads();  // partial is read before the next pass stages over it
+  }
+
+  // the rows' statistics, [3][b][h][s]: max, sum, D
+  if (w.kb == 0 && (lane_id() & 3) == 0) {
+    const size_t plane = (size_t)planes * s;
+    const size_t row0 = ((size_t)at.batch * n_heads + at.head) * s + w.wq0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = frag_row(2 * h);
+      if (w.wq0 + r < s) {
+        stats[row0 + r] = m[h];
+        stats[plane + row0 + r] = l[h];
+        stats[2 * plane + row0 + r] = big_d[h];
+      }
+    }
+  }
+}
+
+// Backward, second launch: one block per (key tile, head, batch, chunk of
+// kO output columns); warp w owns the tile's keys [16 (w % 4), + 16) and
+// walks the queries at or after the tile in chunks of 32, ascending, its
+// group taking 32 / kG of each chunk's: dK = bf16(sum_q dS_bf[q,k] q[q]),
+// dV = bf16(sum_q p[q,k] dO[q]).
+template <int kC, int kO, int kG>
+__global__ void __launch_bounds__(kSThreads * kG, 3 - kG)
+attention_stream_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                            const float* __restrict__ stats, bf16* __restrict__ dqkv, int s,
+                            int n_heads, int hd, int tiles, int planes, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kResident = kC >= kO;
+  constexpr int kT = kSThreads * kG, kMt = 2 / kG;  // threads; a warp's m-tiles of a chunk
+  constexpr int lc = ld_of<kC>(), kKeyTile = kSTile * lc;
+  constexpr int kQTile = kSQueries * lc, kQOut = kSQueries * ld_of<kO>();
+  const int nc = kResident ? 1 : (hd + kC - 1) / kC, nout = (hd + kO - 1) / kO;
+  const int warp = threadIdx.x >> 5, lane = lane_id(), group = warp >> 2;
+  bf16* ks = reinterpret_cast<bf16*>(smem);        // K: [1 or 2][64][lc]
+  bf16* vs = ks + (kResident ? 1 : 2) * kKeyTile;  // V: [1 or 2][64][lc]
+  bf16* qs = vs + (kResident ? 1 : 2) * kKeyTile;  // Q: [2][32][lc]
+  bf16* dos = qs + 2 * kQTile;                     // dO: [2][32][lc]
+  bf16* qos = dos + 2 * kQTile;      // Q's output columns: [2][32][ld_of<kO>], streaming
+  bf16* doos = qos + (kResident ? 0 : 2 * kQOut);  // dO's, likewise
+  // the warp's p[q][key] and dS_bf[q][key]: [16 kMt][kSp] each
+  bf16* ps = doos + (kResident ? 0 : 2 * kQOut) + warp * 2 * 16 * kMt * kSp;
+  bf16* dss = ps + 16 * kMt * kSp;
+
+  const StreamBlock at = stream_block(tiles, planes, n_heads, nout, false);
+  const int d = n_heads * hd, o0 = at.out * kO;
+  const size_t stride = 3 * (size_t)d;
+  const int k0 = at.tile * kSTile, kn = min(kSTile, s - k0), wk0 = k0 + 16 * (warp & 3);
+  const bf16* base = qkv + (size_t)at.batch * s * stride + (size_t)at.head * hd;
+  const bf16* dbase = dout + (size_t)at.batch * s * d + (size_t)at.head * hd;
+  const size_t plane = (size_t)planes * s;
+  const float* row_stats = stats + ((size_t)at.batch * n_heads + at.head) * s;
+  const Root root = root_of(hd);
+  const int n = (s - k0 + kSQueries - 1) / kSQueries * nc;
+
+  if (kResident) {  // the key tile stays; committed with the first stage
+    stage<kC, kT>(ks, base + d, stride, k0, kn, kSTile, hd, vec, threadIdx.x);
+    stage<kC, kT>(vs, base + 2 * d, stride, k0, kn, kSTile, hd, vec, threadIdx.x);
+  }
+  float sc[kMt][2][4], dp[kMt][2][4], dk[kO / 8][4], dv[kO / 8][4];
+  zero(dk);
+  zero(dv);
+  stream(n, [&](int t) {
+    const int j = t / nc, c = t - j * nc, buf = t & 1, c0 = c * kC;
+    const int qj = k0 + kSQueries * j, qn = min(kSQueries, s - qj);
+    stage<kC, kT>(qs + buf * kQTile, base + c0, stride, qj, qn, kSQueries, hd - c0, vec,
+                  threadIdx.x);
+    stage<kC, kT>(dos + buf * kQTile, dbase + c0, d, qj, qn, kSQueries, hd - c0, vec,
+                  threadIdx.x);
+    if (!kResident) {
+      stage<kC, kT>(ks + buf * kKeyTile, base + d + c0, stride, k0, kn, kSTile, hd - c0, vec,
+                    threadIdx.x);
+      stage<kC, kT>(vs + buf * kKeyTile, base + 2 * d + c0, stride, k0, kn, kSTile, hd - c0,
+                    vec, threadIdx.x);
+      if (c == nc - 1) {  // the chunk's output columns of q and dO
+        stage<kO, kT>(qos + (j & 1) * kQOut, base + o0, stride, qj, qn, kSQueries, hd - o0,
+                      vec, threadIdx.x);
+        stage<kO, kT>(doos + (j & 1) * kQOut, dbase + o0, d, qj, qn, kSQueries, hd - o0, vec,
+                      threadIdx.x);
+      }
+    }
+  }, [&](int t) {
+    const int j = t / nc, c = t - j * nc, buf = t & 1;
+    const int qj = k0 + kSQueries * j;
+    // the first launch's products in the same roles: the group's query rows
+    // of the chunk (m-tiles group kMt + i) as A, the warp's 16 keys as B; an
+    // m-tile whose rows all come before the keys is masked whole, skipped
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < kMt; ++i) {
+        zero(sc[i]);
+        zero(dp[i]);
+      }
+    }
+    const int key_at = (kResident ? 0 : buf * kKeyTile) + 16 * (warp & 3) * lc;
+#pragma unroll
+    for (int i = 0; i < kMt; ++i) {
+      const int mt = group * kMt + i;
+      if (qj + 16 * mt + 15 >= wk0) {
+        mma_abt<kC, 1>(sc[i], qs + buf * kQTile + 16 * mt * lc, ks + key_at, 1);
+        mma_abt<kC, 1>(dp[i], dos + buf * kQTile + 16 * mt * lc, vs + key_at, 1);
+      }
+    }
+    if (c < nc - 1) return;
+    // y with the rows' statistics, then dS_bf before its rounding; p and
+    // dS_bf to shared memory, [query][key], to read back transposed
+#pragma unroll
+    for (int i = 0; i < kMt; ++i) {
+      const int r0 = qj + 16 * (group * kMt + i);
+      float m[2], l[2], big_d[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + frag_row(2 * h);
+        const bool in = r < s;
+        m[h] = in ? row_stats[r] : 0.0f;
+        l[h] = in ? row_stats[plane + r] : 1.0f;
+        big_d[h] = in ? row_stats[2 * plane + r] : 0.0f;
+      }
+      stream_scores(sc[i], r0, wk0, root);
+      to_probs(sc[i], m, l);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (r0 + frag_row(e) >= s) sc[i][nt][e] = 0.0f;  // past the last query
+          dp[i][nt][e] = round_bf16(dp[i][nt][e]);
+        }
+      stream_grad_scores(dp[i], sc[i], big_d, r0, wk0, root);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = (16 * i + frag_row(2 * h)) * kSp + 8 * nt + frag_col(0);
+          *reinterpret_cast<uint32_t*>(ps + e) = pack(sc[i][nt][2 * h], sc[i][nt][2 * h + 1]);
+          *reinterpret_cast<uint32_t*>(dss + e) = pack(dp[i][nt][2 * h], dp[i][nt][2 * h + 1]);
+        }
+    }
+    __syncwarp();
+    // A = p^T and dS^T: rows the warp's keys, k 16 queries of the chunk
+    const int mi = lane >> 3;
+    const int e = ((lane & 7) + (mi >> 1) * 8) * kSp + (mi & 1) * 8;
+#pragma unroll
+    for (int i = 0; i < kMt; ++i) {
+      const int kk = group * kMt + i;
+      if (qj + 16 * kk + 15 >= wk0) {
+        uint32_t a_p[4], a_ds[4];
+        ldsm_x4_trans(a_p, ps + 16 * i * kSp + e);
+        ldsm_x4_trans(a_ds, dss + 16 * i * kSp + e);
+        if (kResident) {  // stage t is query chunk j, its tiles whole-row
+          product_ab<kO, lc>(dv, a_p, dos + buf * kQTile + o0, 16 * kk);
+          product_ab<kO, lc>(dk, a_ds, qs + buf * kQTile + o0, 16 * kk);
+        } else {
+          product_ab<kO>(dv, a_p, doos + (j & 1) * kQOut, 16 * kk);
+          product_ab<kO>(dk, a_ds, qos + (j & 1) * kQOut, 16 * kk);
+        }
+      }
+    }
+  });
+  // with two groups, each one's sums added in group order (over what was
+  // staged: the walk is done)
+  if (kG == 2) {
+    float* partial = reinterpret_cast<float*>(smem);
+    add_groups<kO>(dk, partial);
+    __syncthreads();
+    if (!add_groups<kO>(dv, partial)) return;
+  }
+  bf16* dst = dqkv + ((size_t)at.batch * s + wk0) * stride + (size_t)at.head * hd + o0;
+  store_rows<kO>(dk, dst + d, stride, k0 + kn - wk0, hd - o0);
+  store_rows<kO>(dv, dst + 2 * d, stride, k0 + kn - wk0, hd - o0);
+}
+
+// Shared memory of the stream kernels, in bytes; with one column chunk
+// (kC >= kO) Q and dO, or K and V, stay, and no output tile is staged but V
+// (the two key groups' maxima, sums and D after them: 3 x 2 x 64 floats)
+constexpr size_t kRedBytes = 3 * 2 * kSTile * sizeof(float);
+
+template <int kC, int kO>
+size_t stream_fwd_smem() {
+  return ((kC >= kO ? 1 : 2) + 2) * tile_bytes<kC>(kSTile) + 2 * tile_bytes<kO>(kSTile) +
+         kRedBytes;
+}
+
+template <int kC, int kO>
+size_t stream_dq_smem() {
+  return ((kC >= kO ? 2 : 4) + 4) * tile_bytes<kC>(kSTile) +
+         (kC >= kO ? 0 : 2 * tile_bytes<kO>(kSTile)) + kRedBytes;
+}
+
+template <int kC, int kO>
+size_t stream_dkv_smem() {
+  return (kC >= kO ? 2 : 4) * tile_bytes<kC>(kSTile) + 4 * tile_bytes<kC>(kSQueries) +
+         (kC >= kO ? 0 : 4 * tile_bytes<kO>(kSQueries)) +
+         2 * 4 * kSQueries * kSp * sizeof(bf16);
+}
+
+// The stream path's grid: tiles of 64 rows over every plane (and, for the
+// second launch, every chunk of output columns), at most CUDA's 2^31 - 1
+// blocks.
+struct StreamGrid {
+  int tiles, planes;
+  long long blocks;
+};
+
+StreamGrid stream_grid(int b, int s, int n_heads, int nout) {
+  const long long tiles = (s + kSTile - 1) / kSTile, planes = (long long)b * n_heads;
+  return {(int)tiles, (int)std::min(planes, (long long)INT_MAX), tiles * planes * nout};
+}
+
+// Two groups of warps a block where the grid has fewer than two blocks an
+// SM (kG in the kernels' comment).
+bool two_groups(long long blocks) {
+  static const int sms = [] {
+    int device = 0, count = 0;
+    if (cudaGetDevice(&device) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+      return 0;
+    return count;
+  }();
+  return blocks < 2LL * sms;
+}
+
+template <int kC, int kO, int kG>
+cudaError_t launch_stream_fwd_groups(const StreamGrid& grid, const bf16* qkv, bf16* out, int s,
+                              int n_heads, int hd, cudaStream_t st) {
+  const cudaError_t err = allow_smem(attention_stream_kernel<kC, kO, kG>);
+  if (err != cudaSuccess) return err;
+  attention_stream_kernel<kC, kO, kG><<<(unsigned)grid.blocks, kSThreads * kG,
+                                        stream_fwd_smem<kC, kO>(), st>>>(
+      qkv, out, s, n_heads, hd, grid.tiles, grid.planes, hd % 8 == 0 && of::aligned16(qkv, out));
+  return cudaGetLastError();
+}
+
+template <int kC, int kO>
+cudaError_t launch_stream_fwd(const bf16* qkv, bf16* out, int b, int s, int n_heads, int hd,
+                              cudaStream_t st) {
+  const StreamGrid grid = stream_grid(b, s, n_heads, 1);
+  if (grid.blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  // with two groups a warp's scores take half the registers, and a head of
+  // 256 takes its output in one pass
+  constexpr int kO2 = kC == 256 ? 256 : kO;
+  return two_groups(grid.blocks)
+             ? launch_stream_fwd_groups<kC, kO2, 2>(grid, qkv, out, s, n_heads, hd, st)
+             : launch_stream_fwd_groups<kC, kO, 1>(grid, qkv, out, s, n_heads, hd, st);
+}
+
+template <int kC, int kO, int kG>
+cudaError_t launch_stream_dq(const StreamGrid& grid, const bf16* qkv, const bf16* dout,
+                             bf16* dqkv, float* stats, int s, int n_heads, int hd, bool vec,
+                             cudaStream_t st) {
+  const cudaError_t err = allow_smem(attention_stream_dq_kernel<kC, kO, kG>);
+  if (err != cudaSuccess) return err;
+  attention_stream_dq_kernel<kC, kO, kG><<<(unsigned)grid.blocks, kSThreads * kG,
+                                           stream_dq_smem<kC, kO>(), st>>>(
+      qkv, dout, dqkv, stats, s, n_heads, hd, grid.tiles, grid.planes, vec);
+  return cudaGetLastError();
+}
+
+template <int kC, int kO, int kG>
+cudaError_t launch_stream_dkv(const StreamGrid& grid, const bf16* qkv, const bf16* dout,
+                              const float* stats, bf16* dqkv, int s, int n_heads, int hd,
+                              bool vec, cudaStream_t st) {
+  const cudaError_t err = allow_smem(attention_stream_dkv_kernel<kC, kO, kG>);
+  if (err != cudaSuccess) return err;
+  attention_stream_dkv_kernel<kC, kO, kG><<<(unsigned)grid.blocks, kSThreads * kG,
+                                            stream_dkv_smem<kC, kO>(), st>>>(
+      qkv, dout, stats, dqkv, s, n_heads, hd, grid.tiles, grid.planes, vec);
+  return cudaGetLastError();
+}
+
+template <int kC, int kO>
+cudaError_t launch_stream_bwd(const bf16* qkv, const bf16* dout, bf16* dqkv, float* stats, int b,
+                              int s, int n_heads, int hd, cudaStream_t st) {
+  const StreamGrid dq = stream_grid(b, s, n_heads, 1);
+  const StreamGrid dkv = stream_grid(b, s, n_heads, (hd + kO - 1) / kO);
+  if (dkv.blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  const bool vec = hd % 8 == 0 && of::aligned16(qkv, dout, dqkv);
+  constexpr int kO2 = kC == 256 ? 256 : kO;  // as the forward's
+  const cudaError_t err =
+      two_groups(dq.blocks)
+          ? launch_stream_dq<kC, kO2, 2>(dq, qkv, dout, dqkv, stats, s, n_heads, hd, vec, st)
+          : launch_stream_dq<kC, kO, 1>(dq, qkv, dout, dqkv, stats, s, n_heads, hd, vec, st);
+  if (err != cudaSuccess) return err;
+  return two_groups(dkv.blocks)
+             ? launch_stream_dkv<kC, kO, 2>(dkv, qkv, dout, stats, dqkv, s, n_heads, hd, vec, st)
+             : launch_stream_dkv<kC, kO, 1>(dkv, qkv, dout, stats, dqkv, s, n_heads, hd, vec, st);
+}
+
+// f.run<kC, kO>(): the column chunk of the scores and of an output pass.
+// One chunk holds a head of at most 256 (padded as the tiles path pads
+// it, then to 256); wider heads go 64 columns a score chunk.  An output
+// pass takes at most 128 columns.
+template <typename F>
+cudaError_t stream_dispatch(int head_dim, const F& f) {
+  if (head_dim <= 16) return f.template run<16, 16>();
+  if (head_dim <= 32) return f.template run<32, 32>();
+  if (head_dim <= 64) return f.template run<64, 64>();
+  if (head_dim <= 128) return f.template run<128, 128>();
+  if (head_dim <= 256) return f.template run<256, 128>();
+  return f.template run<64, 128>();
+}
+
+struct StreamForward {
+  const bf16* qkv;
+  bf16* out;
+  int b, s, n_heads, hd;
+  cudaStream_t st;
+  template <int kC, int kO>
+  cudaError_t run() const { return launch_stream_fwd<kC, kO>(qkv, out, b, s, n_heads, hd, st); }
+};
+
+struct StreamBackward {
+  const bf16* qkv;
+  const bf16* dout;
+  bf16* dqkv;
+  float* stats;
+  int b, s, n_heads, hd;
+  cudaStream_t st;
+  template <int kC, int kO>
+  cudaError_t run() const {
+    return launch_stream_bwd<kC, kO>(qkv, dout, dqkv, stats, b, s, n_heads, hd, st);
+  }
+};
 
 template <int kHdp, bool kOne>
 cudaError_t launch_fwd(const bf16* qkv, bf16* out, int b, int s, int n_heads, int hd,
@@ -1252,7 +1761,7 @@ const char* of_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// 1 where the tiles path takes the shape, 0 where the rows path does.
+// 1 where the tiles path takes the shape, 0 where the stream path does.
 int causal_attention_tiles(int b, int s, int n_heads, int head_dim) {
   return valid(b, s, n_heads, head_dim) && tiles_take(b, s, n_heads, head_dim);
 }
@@ -1264,8 +1773,9 @@ int causal_attention_bf16(const void* qkv, void* out, int b, int s, int n_heads,
   if (!valid(b, s, n_heads, head_dim)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!tiles_take(b, s, n_heads, head_dim))
-    return launch_rows_fwd(static_cast<const bf16*>(qkv), static_cast<bf16*>(out), b, s, n_heads,
-                           head_dim, st);
+    return stream_dispatch(head_dim, StreamForward{static_cast<const bf16*>(qkv),
+                                                   static_cast<bf16*>(out), b, s, n_heads,
+                                                   head_dim, st});
   const Forward f{static_cast<const bf16*>(qkv), static_cast<bf16*>(out), b, s, n_heads,
                   head_dim, st};
   return dispatch(s, head_dim, f);
@@ -1281,9 +1791,11 @@ int causal_attention_bwd_bf16(const void* qkv, const void* dout, void* dqkv, voi
   if (!valid(b, s, n_heads, head_dim)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!tiles_take(b, s, n_heads, head_dim))
-    return launch_rows_bwd(static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
-                           static_cast<bf16*>(dqkv), static_cast<float*>(stats), b, s, n_heads,
-                           head_dim, st);
+    return stream_dispatch(head_dim, StreamBackward{static_cast<const bf16*>(qkv),
+                                                    static_cast<const bf16*>(dout),
+                                                    static_cast<bf16*>(dqkv),
+                                                    static_cast<float*>(stats), b, s, n_heads,
+                                                    head_dim, st});
   const Backward f{static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
                    static_cast<bf16*>(dqkv), static_cast<float*>(stats), b, s, n_heads,
                    head_dim, st};

@@ -148,7 +148,16 @@ def _attention(x: torch.Tensor, layer: dict, config: DemoConfig, model=None) -> 
     be all-reduced over it before it leaves (Megatron's "f"), as
     ``rmsnorm_to_bf16`` does in ``_logits``."""
     qkv = _bf16_matmul(x, layer["wqkv"])
-    out = causal_attention(qkv, config.n_heads // _size(model))
+    size = _size(model)
+    if config.n_heads % size == 0:
+        out = causal_attention(qkv, config.n_heads // size)
+    else:
+        # the heads do not split over the model ranks: every rank runs every
+        # head on the gathered product and keeps its own output columns, the
+        # rows of ``wo`` it holds
+        width, rank = config.d_model // size, dist.get_rank(model)
+        whole = GatherHeads.apply(qkv, model, config.d_model)
+        out = causal_attention(whole, config.n_heads)[..., rank * width:(rank + 1) * width]
     return reduce_from_model((out @ layer["wo"].to(torch.bfloat16)).float(), model)
 
 
@@ -276,6 +285,28 @@ class GatherFromModel(torch.autograd.Function):
         return grad[..., ctx.rank * ctx.width:(ctx.rank + 1) * ctx.width].contiguous(), None
 
 
+class GatherHeads(torch.autograd.Function):
+    """Where the heads do not split over the model group: each rank's
+    columns of the QKV product (``[q_r | k_r | v_r]``, ``_qkv_order``)
+    all-gathered and put back in the reference's ``[q | k | v]`` order
+    forward.  Backward, each rank holds the gradient of its own output
+    columns only, so the gradients are summed over the group (in f32, then
+    rounded once to the input's type) before this rank takes its columns."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group, d_model: int) -> torch.Tensor:
+        order = _qkv_order(d_model, dist.get_world_size(group), x.device)
+        ctx.group, ctx.order, ctx.rank, ctx.width = group, order, dist.get_rank(group), x.shape[-1]
+        return _all_gather(x, group, dim=-1)[..., torch.argsort(order)]
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        total = grad[..., ctx.order].float()
+        dist.all_reduce(total, group=ctx.group)
+        mine = total[..., ctx.rank * ctx.width:(ctx.rank + 1) * ctx.width]
+        return mine.to(grad.dtype).contiguous(), None, None
+
+
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else CopyToModel.apply(x, group)
 
@@ -341,10 +372,11 @@ def _qkv_order(d_model: int, model: int, device=None) -> torch.Tensor:
 
 def _split_model(params: dict, config: DemoConfig, model: int) -> list[dict]:
     """Each model rank's shards of full parameters, ``wqkv``'s columns
-    permuted first."""
-    if any(width % model for width in (config.n_heads, config.d_ff, config.vocab)):
+    permuted first.  The sharded dims must split evenly, as the reference's
+    shardings require; the heads need not (``_attention`` gathers them)."""
+    if any(width % model for width in (config.d_model, config.d_ff, config.vocab)):
         raise ValueError(
-            f"heads ({config.n_heads}), d_ff ({config.d_ff}) and vocab ({config.vocab}) "
+            f"d_model ({config.d_model}), d_ff ({config.d_ff}) and vocab ({config.vocab}) "
             f"must split evenly over {model} model ranks"
         )
     layers = [
@@ -400,7 +432,9 @@ def sharded_train_step(mesh: DeviceMesh, config: DemoConfig, sequence_parallel: 
     ``sequence_parallel`` its ``[batch / data, tok_len / model]`` block,
     which is all-gathered over ``model`` along the sequence first (the
     all-gather XLA implies).  Attention runs on the rank's
-    ``n_heads / model`` heads and the MLP on its ``d_ff / model`` columns;
+    ``n_heads / model`` heads or, where the heads do not split, on every
+    head of the gathered QKV product, keeping the rank's ``d_model /
+    model`` output columns; the MLP runs on its ``d_ff / model`` columns;
     the vocab-sharded logits are all-gathered before the cross-entropy
     kernel.  The loss is the mean over the global batch: the gradients and
     the loss are averaged over ``data`` in one all-reduce."""
@@ -507,13 +541,21 @@ class RingAttention(torch.autograd.Function):
     posted before the step, dk and dv after it.  That takes ``n``
     rotations, one more than the forward: a block's dk and dv reach their
     owner only after the last step's hop, which carries dk and dv alone.
-    With one rank nothing moves.  The gradients come back in the inputs'
-    type, each rounded once."""
+    With one rank nothing moves.
+
+    The kernels take q, k and v all f32 or all bf16.  Other inputs (float16,
+    or types that differ, as f32 q with bf16 k and v) are widened to f32
+    first, as the reference widens q and each block on its own: a widening
+    is exact.  The output comes back in q's type and each gradient in its
+    own input's type, each rounded once."""
 
     @staticmethod
     def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, group, n: int) -> torch.Tensor:
         my = dist.get_rank(group)
         b, h, s, d = q.shape
+        ctx.dtypes = (q.dtype, k.dtype, v.dtype)
+        if q.dtype not in (torch.float32, torch.bfloat16) or not k.dtype == v.dtype == q.dtype:
+            q, k, v = q.float(), k.float(), v.float()
         q, k_blk, v_blk = q.contiguous(), k.contiguous(), v.contiguous()
         m = torch.full((b, h, s, 1), -math.inf, device=q.device)    # running max
         num = torch.zeros((b, h, s, d), device=q.device)             # numerator
@@ -535,7 +577,7 @@ class RingAttention(torch.autograd.Function):
         out = num / den
         ctx.save_for_backward(q, k, v, out, m, den)
         ctx.group, ctx.n, ctx.my, ctx.after, ctx.before = group, n, my, after, before
-        return out.to(q.dtype)
+        return out.to(ctx.dtypes[0])
 
     @staticmethod
     def backward(ctx, dout: torch.Tensor):
@@ -558,7 +600,8 @@ class RingAttention(torch.autograd.Function):
             if j < n - 1:
                 _wait(pending)
                 k_blk, v_blk = k_next, v_next
-        return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), None, None
+        dq_type, dk_type, dv_type = ctx.dtypes
+        return dq.to(dq_type), dk.to(dk_type), dv.to(dv_type), None, None
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh: DeviceMesh,

@@ -43,6 +43,33 @@ def within_floored_ulps(got: torch.Tensor, want: torch.Tensor, n: int) -> bool:
     return bool(((got.float() - want).abs() <= n * bf16_ulp(torch.maximum(want.abs(), floor))).all())
 
 
+def row_ulps(got: torch.Tensor, want: torch.Tensor, width: int, parts: int = 1) -> tuple[float, float]:
+    """The largest distance of ``got`` from ``want`` in bf16 ulps of the
+    largest magnitude of its row of ``want`` (the last dim cut into rows of
+    ``width`` values; a row's magnitude floored at 2**-14 of its part's),
+    and in bf16 ulps of its part's largest magnitude (the last dim cut into
+    ``parts`` equal parts, as dQ, dK and dV).  The floor is for a row that
+    cancels to about zero (a gradient row whose two keys' dP agree), where
+    f32 noise remains."""
+    want = want.float().unflatten(-1, (parts, -1, width))
+    err = (got.float().unflatten(-1, (parts, -1, width)) - want).abs()
+    rows = want.abs().amax(-1, keepdim=True)
+    largest = rows.movedim(-3, 0).reshape(parts, -1).amax(1).view(parts, 1, 1)
+    return (float((err / bf16_ulp(torch.maximum(rows, 2.0**-14 * largest))).max()),
+            float((err / bf16_ulp(largest)).max()))
+
+
+def rows_close(got: torch.Tensor, want: torch.Tensor, width: int, parts: int = 1) -> bool:
+    """The check of attention against its plain version: within 3 bf16 ulps
+    of each row's magnitude and 2 of its part's (``row_ulps``).  Its rows
+    (one head of one query, or of one key for dK and dV) differ in scale by
+    the count of keys they see, so that the part's tolerance alone passes
+    a long row that is percents off; a row of one or two keys moves by up
+    to 3 ulps where a bf16 ``p`` or ``dS`` rounds the other way."""
+    row, part = row_ulps(got, want, width, parts)
+    return row <= 3 and part <= 2
+
+
 def step_tolerance(p: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
     """How far a parameter after one SGD step ``p - lr * g`` may lie from
     the same step taken elsewhere (the CPU, the JAX reference): ``lr``

@@ -4,9 +4,12 @@
 Counterpart of ``operator_forge/tpu/demo.py::_attention`` lines 79-92: it
 takes the bf16 QKV product ``[b, s, 3d]`` and returns the bf16 attention
 output ``[b, s, d]`` with the heads merged, ready for the ``wo`` product.
-The kernels have two paths, chosen by shape in the source: tiles on the
-tensor cores where a head is at most 128 wide and a row's spilled scores
-fit in shared memory, else one warp a row (``tiles`` says which).
+The kernels have two paths, chosen by shape in the source, both on the
+tensor cores: the tiles path where a head is at most 128 wide, a row's
+spilled scores fit in shared memory and the batch and heads fit the grid's
+y and z; else the stream path, 64-row tiles that stream the other side
+and the head in chunks, which takes any sequence, head width, batch and
+head count (``tiles`` says which).
 The backward takes that output's gradient and returns the gradient of the
 QKV product, with the cast points of JAX's autodiff of the same lines;
 ``causal_attention`` ties the two together as an autograd ``Function``.
@@ -21,9 +24,6 @@ import torch
 
 from . import build
 
-# the widest head whose rows a block of the rows path holds in shared
-# memory (``kRowsMaxHeadDim`` in the source); the sequence has no limit
-MAX_HEAD_DIM = 3072
 MASK_FILL = -1e30  # finite, as in the reference: exp(MASK_FILL - max) == 0
 
 launches = 0
@@ -96,14 +96,6 @@ def _check(qkv: torch.Tensor, n_heads: int) -> tuple[int, int, int]:
     return b, s, head_dim
 
 
-def _card_check(what: str, head_dim: int) -> None:
-    if head_dim > MAX_HEAD_DIM:
-        raise ValueError(
-            f"{what}'s kernels take head_dim <= {MAX_HEAD_DIM}, the widest whose rows fit "
-            f"in a block's shared memory; got {head_dim}"
-        )
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.library("causal_attention")
@@ -123,8 +115,9 @@ def _library() -> ctypes.CDLL:
 
 
 def tiles(b: int, s: int, n_heads: int, head_dim: int) -> bool:
-    """Whether the kernels take a shape on the tiles path (``mma.sync``),
-    rather than the rows path (builds the kernels)."""
+    """Whether the kernels take a shape on the tiles path, the fast path
+    of the main path's shapes, rather than the stream path (builds the
+    kernels)."""
     return bool(_library().causal_attention_tiles(b, s, n_heads, head_dim))
 
 
@@ -137,7 +130,6 @@ def causal_attention_fwd(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
         return causal_attention_ref(qkv, n_heads)
     if qkv.device.type != "cuda" or not qkv.is_contiguous():
         raise ValueError("causal_attention's kernel takes a contiguous CUDA tensor")
-    _card_check("causal_attention", head_dim)
     lib = _library()
     out = torch.empty(b, s, n_heads * head_dim, dtype=torch.bfloat16, device=qkv.device)
     with torch.cuda.device(qkv.device):
@@ -170,7 +162,6 @@ def causal_attention_bwd(
         raise ValueError(
             "causal_attention_bwd's kernel takes contiguous tensors on one CUDA device"
         )
-    _card_check("causal_attention_bwd", head_dim)
     lib = _library()
     dqkv = torch.empty_like(qkv)
     # each row's softmax max and sum and its D = sum_k y dP, handed from the

@@ -23,7 +23,7 @@ from operator_forge_torch import demo
 from operator_forge_torch.entry import dryrun_multichip, train_entry
 from operator_forge_torch.kernels import (
     attention, bf16_ulp, carry_close, gelu, grads_close, mlp, rmsnorm, run_twice, step_tolerance,
-    within_floored_ulps, within_ulps,
+    rows_close, within_floored_ulps, within_ulps,
 )
 from operator_forge_torch.kernels import cross_entropy as ce
 from operator_forge_torch.kernels import ring_attention as ra
@@ -55,37 +55,32 @@ ATTENTION_SHAPES = [
     (2, 70, 2, 12),
     # past the former caps: seq 1025 and 2048 on the tiles path, a row too
     # long for its spilled scores, heads of 129 and 256 (Gemma 7B's) and a
-    # batch of 65536 on the rows path
+    # batch of 65536 on the stream path
     (1, 1025, 2, 32), (1, 2048, 4, 32), (1, 4000, 1, 64), (2, 40, 2, 129), (2, 128, 2, 256),
     (65536, 2, 1, 8),
+    # the stream path: a long row at the tiles path's widest head, Gemma
+    # 7B's heads at seq 2048, heads past the former cap of 3072, and an odd
+    # width that is not a multiple of 8 (element-by-element staging), each
+    # with two groups of warps a block; and a grid of two blocks an SM and
+    # more, one group a block
+    (1, 4096, 4, 128), (1, 2048, 4, 256), (1, 8, 1, 3073), (1, 40, 1, 4096), (2, 33, 2, 200),
+    (8, 3000, 8, 128),
 ]
 
 
 @pytest.mark.parametrize("b, s, n_heads, head_dim", ATTENTION_SHAPES)
 def test_attention_kernel_matches_plain(cuda, b, s, n_heads, head_dim):
-    """Within 2 bf16 ulps of the output's magnitude: the kernel sums in
-    another order than cuBLAS before each bf16 rounding.  Two launches on
-    the same inputs give the same bits."""
+    """Within 3 bf16 ulps of each row's magnitude (a head of one query,
+    whose scale falls with the keys it sees) and 2 of the output's
+    (``rows_close``): the kernel sums in another order than cuBLAS before
+    each bf16 rounding.  Two launches on the same inputs give the same
+    bits."""
     qkv = _normal((b, s, 3 * n_heads * head_dim), 0, cuda).bfloat16()
     before = attention.launches
     (got,), same = run_twice(lambda: attention.causal_attention(qkv, n_heads))
     torch.cuda.synchronize()
     assert attention.launches == before + 2 and same
-    want = attention.causal_attention_ref(qkv, n_heads)
-    tol = 2 * bf16_ulp(want.float().abs().max())
-    assert float((got.float() - want.float()).abs().max()) <= float(tol)
-
-
-@pytest.mark.parametrize(
-    "shape, tiles",
-    [((8, 64, 4, 32), True), ((1, 2048, 4, 32), True), ((1, 4000, 1, 64), False),
-     ((2, 128, 2, 256), False), ((65536, 2, 1, 8), False)],
-)
-def test_attention_path_by_shape(cuda, shape, tiles):
-    """The tiles path takes the main path's shapes and seq 2048 of 32-wide
-    heads; the rows path a row whose spilled scores overflow shared memory,
-    heads wider than 128 and more than 65535 batches."""
-    assert attention.tiles(*shape) == tiles
+    assert rows_close(got, attention.causal_attention_ref(qkv, n_heads), head_dim)
 
 
 def _within_bf16_ulp(got: torch.Tensor, want: torch.Tensor) -> bool:
@@ -183,8 +178,10 @@ def test_mlp_kernels_on_unaligned_rows(cuda, kernel, m, k, n):
 
 @pytest.mark.parametrize("b, s, n_heads, head_dim", ATTENTION_SHAPES)
 def test_attention_bwd_kernel_matches_plain(cuda, b, s, n_heads, head_dim):
-    """dQ, dK and dV each within 2 bf16 ulps of its max magnitude: the
-    kernels sum in another order than cuBLAS before each bf16 rounding."""
+    """dQ, dK and dV each within 3 bf16 ulps of each row's magnitude (a
+    head of one query for dQ, of one key for dK and dV) and 2 of its own
+    (``rows_close``): the kernels sum in another order than cuBLAS before
+    each bf16 rounding."""
     d = n_heads * head_dim
     qkv = _normal((b, s, 3 * d), 4, cuda).bfloat16()
     dout = _normal((b, s, d), 5, cuda).bfloat16()
@@ -192,9 +189,7 @@ def test_attention_bwd_kernel_matches_plain(cuda, b, s, n_heads, head_dim):
     (got,), same = run_twice(lambda: attention.causal_attention_bwd(qkv, dout, n_heads))
     assert attention.bwd_launches == before + 2 and same
     want = attention.causal_attention_bwd_ref(qkv, dout, n_heads)
-    for part in range(3):
-        cols = slice(part * d, (part + 1) * d)
-        assert within_ulps(got[..., cols], want[..., cols], 2)
+    assert rows_close(got, want, head_dim, 3)
 
 
 # DemoConfig()'s [512, 128]; one row; 4096 rows; the widest rows; row
@@ -714,6 +709,50 @@ def test_ring_step_bwd_path_by_shape(cuda, shape, case, kernel):
     inputs, my, origin, acc = ring_bwd_inputs(shape, case, cuda)
     kernels = _cuda_kernels(lambda: ra.ring_step_bwd(*inputs, my, origin, *acc))
     assert len(kernels) == 1 and kernel in kernels[0], kernels
+
+
+# Profiled after the other kernels' path tests, with them: the profiler
+# puts the card's activities on the host's clock by a conversion it sets up
+# at its first session in the process, and the conversion drifts as the
+# process runs on (past ``PROFILE_MARGIN_S`` some 35 s after that session
+# on an H100), so the profiled tests keep together, within seconds of the
+# first session.
+@pytest.mark.parametrize(
+    "shape, tiles, args",
+    [((8, 64, 4, 32), True, "32, true"), ((1, 2048, 4, 32), True, "32, false"),
+     ((1, 4000, 1, 64), False, "64, 64, 2"), ((1, 4096, 4, 128), False, "128, 128, 2"),
+     ((1, 3000, 6, 128), False, "128, 128, 1"),
+     ((2, 128, 2, 256), False, ("256, 256, 2", "256, 128, 2")),
+     ((2, 33, 2, 200), False, ("256, 256, 2", "256, 128, 2")),
+     ((1, 8, 1, 3073), False, "64, 128, 2"), ((65536, 2, 1, 8), False, "16, 16, 1")],
+)
+def test_attention_path_by_shape(cuda, shape, tiles, args):
+    """The tiles path takes the main path's shapes and seq 2048 of 32-wide
+    heads; the stream path a row whose spilled scores overflow shared
+    memory, heads wider than 128 (one score chunk up to heads of 256, else
+    chunks of 64 columns; output passes of 128) and more than 65535
+    batches, with two groups of warps a block on a grid of fewer than two
+    blocks an SM (then a head of 256 takes the forward's and dQ's output
+    in one pass of 256 columns; dK and dV keep 128).  Either path is one
+    forward kernel and two backward kernels, named by path and template
+    arguments (the padded head, one chunk or more; score and output
+    columns, groups): one set for all three, or the forward's and dQ's,
+    then dK and dV's."""
+    assert attention.tiles(*shape) == tiles
+    b, s, n_heads, head_dim = shape
+    qkv = _normal((b, s, 3 * n_heads * head_dim), 40, cuda).bfloat16()
+    dout = _normal((b, s, n_heads * head_dim), 41, cuda).bfloat16()
+    if tiles:
+        names = (f"causal_attention_kernel<{args}>", f"causal_attention_bwd_dq_kernel<{args}>",
+                 f"causal_attention_bwd_dkv_kernel<{args.split(',')[0]}>")
+    else:
+        first, last = (args, args) if isinstance(args, str) else args
+        names = (f"attention_stream_kernel<{first}>", f"attention_stream_dq_kernel<{first}>",
+                 f"attention_stream_dkv_kernel<{last}>")
+    fwd = _cuda_kernels(lambda: attention.causal_attention_fwd(qkv, n_heads))
+    bwd = _cuda_kernels(lambda: attention.causal_attention_bwd(qkv, dout, n_heads))
+    assert len(fwd) == 1 and names[0] in fwd[0], fwd
+    assert len(bwd) == 2 and names[1] in bwd[0] and names[2] in bwd[1], bwd
 
 
 def _slices_close(got, want_of, rows: int, check) -> None:

@@ -17,7 +17,8 @@ import torch
 from operator_forge.tpu import demo as jdemo
 from operator_forge_torch import demo
 from operator_forge_torch.kernels import (
-    attention, bf16_ulp, carry_close, gelu, rmsnorm, run_twice, step_tolerance, within_ulps,
+    attention, bf16_ulp, carry_close, gelu, rmsnorm, row_ulps, rows_close, run_twice, step_tolerance,
+    within_ulps,
 )
 
 CONFIGS = {
@@ -197,6 +198,43 @@ def test_within_ulps():
     got = want + torch.tensor([2 * 2.0**-6, 0.0])
     assert within_ulps(got, want, 2) and not within_ulps(got, want, 1)
     assert within_ulps(got.bfloat16(), want, 2)
+
+
+def test_row_ulps():
+    """Errors in ulps of each row's largest magnitude (rows of 2 values:
+    2**-6 for the first row, 2**-13 for the second; a row of zeros those
+    of 2**-14 of its part's largest) and of the part's largest."""
+    want = torch.tensor([[1.0, -3.0, 0.03, 0.02]])
+    got = want + torch.tensor([[2 * 2.0**-6, 0.0, 0.0, 3 * 2.0**-13]])
+    assert row_ulps(got, want, 2) == (3.0, 2.0) and rows_close(got, want, 2)
+    got[0, 3] += 2.0**-13
+    assert row_ulps(got, want, 2) == (4.0, 2.0) and not rows_close(got, want, 2)
+    assert within_ulps(got, want, 2)  # the whole tensor's tolerance passes it
+    got[0, 0] += 2.0**-6
+    assert row_ulps(got, want, 2) == (4.0, 3.0)
+    # zeros: of 3, 2**-14 of it has an ulp of 2**-20; with two parts, the
+    # second's largest is 2**-10: 2**-31
+    want = torch.tensor([[1.0, -3.0, 0.0, 0.0, 2.0**-10, 0.0, 0.0, 0.0]])
+    got = want + torch.tensor([[0.0, 0.0, 3 * 2.0**-20, 0.0, 0.0, 0.0, 0.0, 3 * 2.0**-31]])
+    assert row_ulps(got, want, 2, 2) == (3.0, 3 * 2.0**-14)
+    assert rows_close(got, want, 2, 2)
+    got[0, 7] *= 2
+    assert not rows_close(got, want, 2, 2) and rows_close(got, want, 2)
+
+
+@pytest.mark.parametrize("off", [1.02, 1.05, 1.1])
+def test_rows_close_rejects_late_rows_that_are_off(off):
+    """The control of attention's check: plain attention's output at
+    ``[1, 2048, 1, 32]`` with its later half of rows ``off`` times too
+    large, as a softmax sum that much off in the late key tiles leaves it.
+    ``rows_close`` rejects it; two bf16 ulps of the whole output's max
+    (row 0 is v_0, some 10 times a late row) would not."""
+    qkv = torch.randn((1, 2048, 96), generator=torch.Generator().manual_seed(3)).bfloat16()
+    want = attention.causal_attention_ref(qkv, 1)
+    got = want.float()
+    got[:, 1024:] *= off
+    assert rows_close(want, want, 32) and not rows_close(got, want, 32)
+    assert within_ulps(got, want, 2)
 
 
 def test_step_tolerance():

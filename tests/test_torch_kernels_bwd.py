@@ -15,7 +15,7 @@ import torch
 
 from operator_forge.tpu import demo as jdemo
 from operator_forge_torch import demo
-from operator_forge_torch.kernels import attention, bf16_ulp, gelu, rmsnorm
+from operator_forge_torch.kernels import attention, bf16_ulp, gelu, rmsnorm, rows_close
 from operator_forge_torch.kernels import cross_entropy as ce
 
 CONFIGS = {
@@ -110,6 +110,57 @@ def _qkv(b, s, n_heads, head_dim, seed=0):
 
 def _mean_rel(got, want):
     return float((got.float() - want.float()).abs().mean() / want.float().abs().mean())
+
+
+def _jax_attention(qkv, n_heads):
+    """``demo.py:79-91`` in JAX, transcribed from the QKV product to the
+    merged heads: what ``causal_attention_ref`` computes."""
+    b, s, three_d = qkv.shape
+    d = three_d // 3
+    head_dim = d // n_heads
+    q, k, v = jnp.split(qkv, 3, axis=-1)
+
+    def heads(t):
+        return t.reshape(b, s, n_heads, head_dim).transpose(0, 2, 1, 3)
+
+    q, k, v = heads(q), heads(k), heads(v)
+    scores = (q @ k.transpose(0, 1, 3, 2)).astype(jnp.float32)
+    scores = scores / jnp.sqrt(jnp.float32(head_dim))
+    scores = jnp.where(jnp.tril(jnp.ones((s, s), bool)), scores, -1e30)
+    probs = jax.nn.softmax(scores, axis=-1).astype(jnp.bfloat16)
+    return (probs @ v).transpose(0, 2, 1, 3).reshape(b, s, d)
+
+
+# heads the card's kernels now take past their former cap of 3072 and a
+# width that is not a multiple of 8, on short sequences
+WIDE_HEADS = [(2, 33, 2, 200), (1, 8, 1, 3073), (1, 40, 1, 4096)]
+
+
+@pytest.mark.parametrize("b, s, n_heads, head_dim", WIDE_HEADS)
+def test_attention_ref_matches_jax_on_wide_heads(b, s, n_heads, head_dim):
+    """The plain forward, the card kernels' yardstick, against the
+    reference's lines at heads of 200, 3073 and 4096, by the card kernels'
+    check (``rows_close``: 3 bf16 ulps of each row's max |out|, a head of
+    one query, and 2 of the output's), the products summed in another
+    order before each bf16 rounding."""
+    qkv = _qkv(b, s, n_heads, head_dim)
+    want = _jax_attention(jnp.asarray(qkv.float().numpy(), jnp.bfloat16), n_heads)
+    got = attention.causal_attention_ref(qkv, n_heads)
+    assert got.dtype == torch.bfloat16
+    assert rows_close(got, torch.from_numpy(np.asarray(want, np.float32)), head_dim)
+
+
+@pytest.mark.parametrize("b, s, n_heads, head_dim", WIDE_HEADS)
+def test_attention_bwd_ref_matches_jax_on_wide_heads(b, s, n_heads, head_dim):
+    """The plain backward against ``jax.vjp`` of the reference's lines at
+    the same heads: dQ, dK and dV each by the same check (rows of a head
+    of one query for dQ, of one key for dK and dV)."""
+    qkv = _qkv(b, s, n_heads, head_dim)
+    dout = torch.from_numpy(_normal((b, s, n_heads * head_dim), 1)).bfloat16()
+    _, vjp = jax.vjp(lambda t: _jax_attention(t, n_heads), jnp.asarray(qkv.float().numpy(), jnp.bfloat16))
+    (want,) = vjp(jnp.asarray(dout.float().numpy(), jnp.bfloat16))
+    got = attention.causal_attention_bwd_ref(qkv, dout, n_heads)
+    assert rows_close(got, torch.from_numpy(np.asarray(want, np.float32)), head_dim, 3)
 
 
 @pytest.mark.parametrize("b, s, n_heads, head_dim", [(8, 64, 4, 32), (2, 17, 3, 16)])

@@ -305,25 +305,42 @@ def test_dense_causal_attention_matches_jax(dtype):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=tol, atol=tol)
 
 
-def _jax_ring(q, k, v, dout, dtype: str, n: int) -> tuple:
+def _types(dtype) -> tuple:
+    """The types of q, k and v: one name for all three, or one each."""
+    return (dtype,) * 3 if isinstance(dtype, str) else tuple(dtype)
+
+
+def _jax_ring(q, k, v, dout, dtype, n: int) -> tuple:
     """``jdemo.ring_attention`` on ``n`` CPU devices and its gradient by
-    ``jax.vjp``: ``(out, dq, dk, dv)`` as f32 numpy."""
+    ``jax.vjp``, q, k and v cast to ``dtype`` (see ``_types``) and dout to
+    q's: ``(out, dq, dk, dv)`` as f32 numpy, then their types' names."""
     mesh = Mesh(np.asarray(jax.devices()[:n]), ("seq",))
-    q, k, v, dout = (jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v, dout))
+    q_t, k_t, v_t = _types(dtype)
+    q, k, v, dout = (jnp.asarray(a, getattr(jnp, t)) for a, t in zip((q, k, v, dout), (q_t, k_t, v_t, q_t)))
     out, vjp = jax.vjp(lambda *qkv: jdemo.ring_attention(*qkv, mesh, axis="seq"), q, k, v)
-    return tuple(np.asarray(t, np.float32) for t in (out, *vjp(dout)))
+    tensors = (out, *vjp(dout))
+    return (*(np.asarray(t, np.float32) for t in tensors), tuple(str(t.dtype) for t in tensors))
 
 
-def _close(got, want, dtype: str) -> None:
-    """f32: rtol and atol 2e-5, the forward's bar; bf16: each array within
-    2 bf16 ulps of its max |value| (both round an f32 result once, which
-    may differ in its last bits)."""
-    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
-        if dtype == "float32":
+def _f16_ulp(x: float) -> float:
+    """The spacing of float16 values at ``x`` (normal range)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 10)
+
+
+def _close(got, want, dtype) -> None:
+    """Each of out, dq, dk and dv by its own type (out and dq q's, dk k's,
+    dv v's), which both sides must agree on: f32 within rtol and atol 2e-5,
+    the forward's bar; bf16 within 2 bf16 ulps of the array's max |value|
+    and float16 within 2 float16 ulps of it (both round an f32 result once,
+    which may differ in its last bits)."""
+    assert got[4] == want[4], (got[4], want[4])
+    for name, g, w, t in zip(("out", "dq", "dk", "dv"), got, want, want[4]):
+        if t == "float32":
             np.testing.assert_allclose(g, w, rtol=2e-5, atol=2e-5, err_msg=name)
         else:
-            tol = 2 * float(bf16_ulp(torch.tensor(np.abs(w).max())))
-            assert float(np.abs(g - w).max()) <= tol, name
+            top = float(np.abs(w).max())
+            tol = 2 * (float(bf16_ulp(torch.tensor(top))) if t == "bfloat16" else _f16_ulp(top))
+            assert float(np.abs(g - w).max()) <= tol, (name, float(np.abs(g - w).max()), tol)
 
 
 RING_SHAPE = (2, 2, 32, 16)   # the 4-rank ring: blocks of 8
@@ -331,59 +348,68 @@ ALONE_SHAPE = (1, 2, 8, 8)    # a ring of one rank
 LONG_SHAPE = (1, 2, 1100, 8)  # a ring of one rank past 1024 keys
 
 
+# the types the rings run in: f32 and bf16, which the kernels take, and
+# float16 and f32 q with bf16 k and v, which the ring widens to f32 first
+RING_TYPES = {"float32": "float32", "bfloat16": "bfloat16", "float16": "float16",
+              "mixed": ("float32", "bfloat16", "bfloat16")}
+
+
 @pytest.fixture(scope="module")
 def ring_run():
     """Ring attention and its gradient in 4 gloo ranks, spawned once: the
-    4-rank ring at ``RING_SHAPE`` in f32 and bf16 and, on each rank, a
-    1-rank ring at ``ALONE_SHAPE`` (q = k = v, f32 and bf16) and at
-    ``LONG_SHAPE`` (f32)."""
+    4-rank ring at ``RING_SHAPE`` in each of ``RING_TYPES`` and, on each
+    rank, a 1-rank ring at ``ALONE_SHAPE`` (q = k = v) in each of them and
+    at ``LONG_SHAPE`` (f32)."""
     rng = np.random.default_rng(7)
     q, k, v, dout = (rng.standard_normal(RING_SHAPE, dtype=np.float32) for _ in range(4))
     small, d_small = (rng.standard_normal(ALONE_SHAPE, dtype=np.float32) for _ in range(2))
     long = [rng.standard_normal(LONG_SHAPE, dtype=np.float32) for _ in range(4)]
-    rings = [(q, k, v, dout, dtype) for dtype in ("float32", "bfloat16")]
-    alone = [(small, small, small, d_small, dtype) for dtype in ("float32", "bfloat16")]
-    alone.append((*long, "float32"))
-    out = ranks.run_ranks(4, torch_ranks.ring, (rings, alone), "cpu", RANKS_TIMEOUT)
-    joined = [tuple(np.concatenate([o["rings"][i][t] for o in out], axis=2) for t in range(4))
-              for i in range(len(rings))]
-    return dict(rings=rings, alone=alone, joined=joined, by_rank=[o["alone"] for o in out])
+    rings = {name: (q, k, v, dout, dtype) for name, dtype in RING_TYPES.items()}
+    alone = {name: (small, small, small, d_small, dtype) for name, dtype in RING_TYPES.items()}
+    alone["long"] = (*long, "float32")
+    out = ranks.run_ranks(4, torch_ranks.ring, (list(rings.values()), list(alone.values())), "cpu",
+                          RANKS_TIMEOUT)
+    joined = {name: (*(np.concatenate([o["rings"][i][t] for o in out], axis=2) for t in range(4)),
+                     out[0]["rings"][i][4])
+              for i, name in enumerate(rings)}
+    by_rank = [dict(zip(alone, o["alone"])) for o in out]
+    return dict(rings=rings, alone=alone, joined=joined, by_rank=by_rank)
 
 
 def test_ring_attention_matches_jax_on_4_ranks(ring_run):
-    q, k, v, _, _ = ring_run["rings"][0]
+    q, k, v, _, _ = ring_run["rings"]["float32"]
     mesh = Mesh(np.asarray(jax.devices()[:4]), ("seq",))
     want = jdemo.ring_attention(q, k, v, mesh, axis="seq")
-    np.testing.assert_allclose(ring_run["joined"][0][0], np.asarray(want), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(ring_run["joined"]["float32"][0], np.asarray(want), rtol=2e-5, atol=2e-5)
 
 
 def test_single_rank_ring_matches_jax(ring_run):
-    small = ring_run["alone"][0][0]
+    small = ring_run["alone"]["float32"][0]
     mesh = Mesh(np.asarray(jax.devices()[:1]), ("seq",))
     want = np.asarray(jdemo.ring_attention(small, small, small, mesh, axis="seq"))
     for alone in ring_run["by_rank"]:
-        np.testing.assert_allclose(alone[0][0], want, rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(alone["float32"][0], want, rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", list(RING_TYPES))
 def test_ring_attention_gradient_matches_jax_on_4_ranks(ring_run, dtype):
     """``backward()`` through the 4-rank ring against ``jax.vjp`` of the
-    reference's ring on 4 devices (see ``_close``)."""
-    index = ("float32", "bfloat16").index(dtype)
-    q, k, v, dout, _ = ring_run["rings"][index]
-    _close(ring_run["joined"][index], _jax_ring(q, k, v, dout, dtype, 4), dtype)
+    reference's ring on 4 devices (see ``_close``), also for float16 and
+    for f32 q with bf16 k and v, which the reference takes: the output in
+    q's type, each gradient in its own input's."""
+    q, k, v, dout, types = ring_run["rings"][dtype]
+    _close(ring_run["joined"][dtype], _jax_ring(q, k, v, dout, types, 4), types)
 
 
-@pytest.mark.parametrize("case", ["float32", "bfloat16", "long"])
+@pytest.mark.parametrize("case", [*RING_TYPES, "long"])
 def test_single_rank_ring_gradient_matches_jax(ring_run, case):
-    """The ring of one rank, at ``ALONE_SHAPE`` and at a block of 1100
-    keys, and its gradient, against the reference on one device, on
-    every rank."""
-    index = ("float32", "bfloat16", "long").index(case)
-    *arrays, dtype = ring_run["alone"][index]
+    """The ring of one rank, at ``ALONE_SHAPE`` in each of ``RING_TYPES``
+    and at a block of 1100 keys, and its gradient, against the reference
+    on one device, on every rank."""
+    *arrays, dtype = ring_run["alone"][case]
     want = _jax_ring(*arrays, dtype, 1)
     for alone in ring_run["by_rank"]:
-        _close(alone[index], want, dtype)
+        _close(alone[case], want, dtype)
 
 
 def test_dryrun_multichip_on_cpu_is_finite():

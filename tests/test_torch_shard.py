@@ -31,13 +31,20 @@ from operator_forge_torch.kernels import step_tolerance
 
 RANKS_TIMEOUT = 240
 TEST_CONFIG = dict(d_model=64, n_heads=2, n_layers=2, d_ff=128, seq_len=16, batch=8)
-# (config, sequence_parallel, token length): the reference's own test
-# step, DemoConfig() at full width, and the dryrun's SP step, whose 17
-# tokens pad to 18 over the model axis
+# (config, sequence_parallel, token length, ranks): the reference's own
+# test step, DemoConfig() at full width, and the dryrun's SP step, whose
+# 17 tokens pad to 18 over the model axis, on the (4, 2) mesh; then heads
+# that do not split over the model axis (3 heads of 32 and of 22 on the
+# (4, 2) mesh, also with the SP step, 1 head on a (1, 2) mesh), which every
+# rank runs whole
 CASES = {
-    "test": (TEST_CONFIG, False, 17),
-    "default": ({}, False, 65),
-    "test_sp": (TEST_CONFIG, True, 18),
+    "test": (TEST_CONFIG, False, 17, 8),
+    "default": ({}, False, 65, 8),
+    "test_sp": (TEST_CONFIG, True, 18, 8),
+    "uneven_heads": (dict(d_model=96, n_heads=3, d_ff=384), False, 65, 8),
+    "uneven_heads_66": (dict(d_model=66, n_heads=3), False, 65, 8),
+    "uneven_heads_sp": (dict(TEST_CONFIG, d_model=96, n_heads=3), True, 18, 8),
+    "one_head": (dict(d_model=64, n_heads=1), False, 65, 2),
 }
 
 
@@ -47,12 +54,15 @@ def _as_np(tree):
 
 @pytest.fixture(scope="module")
 def sharded_run():
-    """JAX's sharded step on an 8-device mesh for each case, and the
-    port's: 8 ranks spawned once, then 1 rank for the (1, 1) mesh."""
-    jmesh = jdemo.make_mesh(8)
+    """JAX's sharded step on a mesh of each case's devices, and the
+    port's: 8 ranks spawned once for the (4, 2) mesh's cases, 2 for the
+    (1, 2) mesh's, then 1 rank for the (1, 1) mesh.  ``got[name]`` holds
+    each rank's ``(loss, gathered parameters on rank 0)``, ``mesh`` the
+    8 ranks' layouts and ``megatron`` their Functions' results."""
     grad = jax.jit(jax.grad(jdemo.loss_fn), static_argnums=2)
-    cases, want = [], {}
-    for name, (kwargs, sequence_parallel, tok_len) in CASES.items():
+    cases, want = {8: [], 2: []}, {}
+    for name, (kwargs, sequence_parallel, tok_len, n_ranks) in CASES.items():
+        jmesh = jdemo.make_mesh(n_ranks)
         jconfig = jdemo.DemoConfig(**kwargs)
         jparams = jdemo.init_params(jconfig, jax.random.PRNGKey(0))
         jtokens = jax.random.randint(jax.random.PRNGKey(1), (jconfig.batch, tok_len), 0, jconfig.vocab)
@@ -61,12 +71,18 @@ def sharded_run():
             jnew, jloss = step(jparams, jtokens)
         jgrads = grad(jparams, jtokens, jconfig)
         params = _as_np(jparams)
-        cases.append((kwargs, params, np.asarray(jtokens), sequence_parallel))
+        cases[n_ranks].append((kwargs, params, np.asarray(jtokens), sequence_parallel))
         want[name] = dict(loss=float(jloss), new=_as_np(jnew), grads=_as_np(jgrads), params=params,
                           tokens=np.asarray(jtokens), config=demo.DemoConfig(**kwargs))
-    got = ranks.run_ranks(8, torch_ranks.sharded, (cases,), "cpu", RANKS_TIMEOUT)
-    alone = ranks.run_ranks(1, torch_ranks.sharded, (cases[:1],), "cpu", RANKS_TIMEOUT)
-    return dict(want=want, got=got, alone=alone[0])
+    runs = {n: ranks.run_ranks(n, torch_ranks.sharded, (cases[n],), "cpu", RANKS_TIMEOUT) for n in cases}
+    got = {}
+    for n, outs in runs.items():
+        names = [name for name, case in CASES.items() if case[3] == n]
+        for i, name in enumerate(names):
+            got[name] = [out["steps"][i] for out in outs]
+    alone = ranks.run_ranks(1, torch_ranks.sharded, (cases[8][:1],), "cpu", RANKS_TIMEOUT)
+    return dict(want=want, got=got, mesh=[out["mesh"] for out in runs[8]],
+                megatron=[out["megatron"] for out in runs[8]], alone=alone[0])
 
 
 @pytest.mark.parametrize("n", range(1, 9))
@@ -75,8 +91,8 @@ def test_mesh_shape_matches_jax(n):
 
 
 def test_make_mesh_8(sharded_run):
-    for rank, out in enumerate(sharded_run["got"]):
-        assert out["mesh"] == ((4, 2), ("data", "model"), (rank // 2, rank % 2))
+    for rank, mesh in enumerate(sharded_run["mesh"]):
+        assert mesh == ((4, 2), ("data", "model"), (rank // 2, rank % 2))
 
 
 def test_param_specs_match_jax():
@@ -91,7 +107,7 @@ def test_megatron_functions_on_2_ranks(sharded_run):
     the loss sum(y (r + 1)); for the gather, sum(y * arange(6))."""
     base = np.array([1.0, 2.0, 3.0], np.float32)
     for r in range(2):
-        out = sharded_run["got"][r]["megatron"]
+        out = sharded_run["megatron"][r]
         y, grad = out["copy"]   # f: identity; gradient summed: 1 + 2
         assert np.array_equal(y, (r + 1) * base) and np.array_equal(grad, [3, 3, 3])
         y, grad = out["reduce"]  # g: sum forward; gradient passed through
@@ -112,7 +128,7 @@ def test_rmsnorm_to_bf16_on_2_ranks_gives_the_chains_bits(sharded_run):
     f32, as the chain does.  Without the group the gradient differs (each
     rank feeds another output gradient), so the all-reduce ran."""
     for r in range(2):
-        out = sharded_run["got"][r]["megatron"]["rmsnorm_to_bf16"]
+        out = sharded_run["megatron"][r]["rmsnorm_to_bf16"]
         assert all(np.array_equal(a, b) for a, b in zip(out["fused"], out["chain"]))
         assert np.array_equal(out["fused"][0], out["alone"][0])
         assert not np.array_equal(out["fused"][1], out["alone"][1])
@@ -136,26 +152,35 @@ def test_wqkv_permutation_round_trips():
             assert block["unembed"].shape == (d, config.vocab // model)
 
 
-def test_shards_must_split_evenly():
-    config = demo.DemoConfig(d_model=96, n_heads=3, d_ff=384)
+@pytest.mark.parametrize("kwargs", [dict(vocab=255), dict(d_ff=127)], ids=["vocab", "d_ff"])
+def test_shards_must_split_evenly(kwargs):
+    """A vocabulary or an MLP width that does not split over 2 model ranks
+    raises, in the port as in the reference (whose shardings refuse it);
+    heads that do not split are taken (``test_sharded_step_*`` cases
+    ``uneven_heads``, ``uneven_heads_66``, ``uneven_heads_sp`` and
+    ``one_head``)."""
+    config = demo.DemoConfig(**kwargs)
     params = demo.init_params(config, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(ValueError, match="split evenly over 2 model ranks"):
         demo._split_model(params, config, 2)
+    jconfig = jdemo.DemoConfig(**kwargs)
+    jmesh = jdemo.make_mesh(2)
+    tokens = jax.random.randint(jax.random.PRNGKey(1), (jconfig.batch, jconfig.seq_len + 1), 0, jconfig.vocab)
+    with pytest.raises(ValueError), jmesh:
+        jdemo.sharded_train_step(jmesh, jconfig)(jdemo.init_params(jconfig, jax.random.PRNGKey(0)), tokens)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_sharded_step_loss_matches_jax(sharded_run, case):
-    i = list(CASES).index(case)
-    losses = [out["steps"][i][0] for out in sharded_run["got"]]
+    losses = [loss for loss, _ in sharded_run["got"][case]]
     assert len(set(losses)) == 1  # every rank holds the same global mean
     assert abs(losses[0] - sharded_run["want"][case]["loss"]) <= 5e-5
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_sharded_step_parameters_match_jax(sharded_run, case):
-    i = list(CASES).index(case)
     want = sharded_run["want"][case]
-    got = sharded_run["got"][0]["steps"][i][1]
+    got = sharded_run["got"][case][0][1]
     lr = want["config"].learning_rate
     leaves = zip(*map(demo.tree_leaves, (got, want["new"], want["params"], want["grads"])))
     for j, (n, w, p, g) in enumerate(leaves):

@@ -17,17 +17,22 @@ def _numpy(tree: dict) -> dict:
     return demo.tree_map(lambda t: t.detach().numpy(), tree)
 
 
-def _ring_grads(q, k, v, dout, dtype: str, mesh) -> tuple:
-    """Ring attention of ``q, k, v`` (numpy f32, cast to ``dtype``) over
-    ``mesh``'s ``seq`` dim and its gradient for ``dout``, through
-    ``backward()``: ``(out, dq, dk, dv)`` as f32 numpy."""
-    def typed(a):
-        return torch.from_numpy(a).to(getattr(torch, dtype)).requires_grad_()
+def _ring_grads(q, k, v, dout, dtype, mesh) -> tuple:
+    """Ring attention of ``q, k, v`` (numpy f32, cast to ``dtype``, one
+    name or one for each of q, k and v) over ``mesh``'s ``seq`` dim and its
+    gradient for ``dout``, through ``backward()``: ``(out, dq, dk, dv)`` as
+    f32 numpy, then the names of those four tensors' types."""
+    dtypes = (dtype,) * 3 if isinstance(dtype, str) else dtype
 
-    q, k, v = typed(q), typed(k), typed(v)
+    def typed(a, name):
+        return torch.from_numpy(a).to(getattr(torch, name)).requires_grad_()
+
+    q, k, v = (typed(a, name) for a, name in zip((q, k, v), dtypes))
     out = demo.ring_attention(q, k, v, mesh, axis="seq")
     out.backward(torch.from_numpy(dout).to(out.dtype))
-    return tuple(t.detach().float().numpy() for t in (out, q.grad, k.grad, v.grad))
+    tensors = (out, q.grad, k.grad, v.grad)
+    return (*(t.detach().float().numpy() for t in tensors),
+            tuple(str(t.dtype).removeprefix("torch.") for t in tensors))
 
 
 def ring(rings: list, alone: list) -> dict:
