@@ -6,14 +6,16 @@ nvcc:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --second-paths`` prints the card and the second
-paths' rows of (c) alone, a failed check on its row's line, and exits 0.)
+paths' rows of (c) with the ring's wide rows alone, a failed check on its
+row's line, and exits 0.)
 
 Phases, each of which exits non-zero on a failed check:
   (a) print the card's name and power limit; pin the matmul numerics to
       f32 accumulation (no TF32, no reduced-precision bf16 reductions), as
       the reference accumulates;
   (b) build every kernel from the checkout's sources (one ``nvcc`` a CUDA
-      source, all at once), print the seconds;
+      source, all at once), print the seconds and each kernel's registers
+      and spill bytes;
   (c) hold each kernel against its plain version at the main path's shapes
       (the forward's, the train step's, the ring's block steps: every mask
       case at three shapes for the ring step; RMSNorm's forward to bf16,
@@ -36,11 +38,13 @@ Phases, each of which exits non-zero on a failed check:
       each beside SDPA (its backward op) under the same mask, each bound
       counting the pairs the mask leaves.  The kernels that only shapes off
       the main path reach (attention's stream kernels at heads of 256 and
-      at Llama 2 7B's [1, 4096, 32, 128], the ring step's long kernel and
-      its backward's row kernel at heads of 256, the ring step at a block
-      of 2048 keys) are checked and timed the same way
-      (``second_path_rows``).  Then each kernel past its former cap
-      (``domain_checks``);
+      at Llama 2 7B's [1, 4096, 32, 128], the ring step at a block of 2048
+      keys) are checked and timed the same way (``second_path_rows``).
+      Then each kernel past its former cap
+      (``domain_checks``: the ring step and its backward also at heads of
+      3073 and 4096).  The ring's wide kernels at heads of 256 (Gemma 7B's)
+      are main-path rows since the wide rings of (g) run them
+      (``RING_WIDE_TIMED``, ``RING_WIDE_BWD_TIMED``);
   (d) serve requests: ``entry()``'s forward on seeded token batches, each
       checked against the same forward on the CPU (plain versions), with
       every kernel's launch count read around those calls; print the
@@ -59,18 +63,20 @@ Phases, each of which exits non-zero on a failed check:
   (g) ring attention: the 4-rank ring's schedule replayed in one process
       (at step j rank r holds block (r - j) % 4, every block step through
       the kernel; a 2-rank ring at seq 8192, whose blocks of 4096 keys
-      include an earlier one), and the real ``ring_attention`` on the
+      include an earlier one; 2-rank rings at heads of 256 over seq 2048
+      and 8192, ``RING_WIDE_SHAPES``), and the real ``ring_attention`` on the
       group of one, each against ``dense_causal_attention``; the replay
       checks the kernel and the merge, not NCCL.  Then the ring's
       gradient the same two ways (the replay with a backward schedule of
       its own), against autograd of ``dense_causal_attention`` at
-      [8, 4, 64, 32], [1, 4, 1024, 32] and [1, 4, 4096, 32], with n
-      backward steps a rank for each backward;
+      [8, 4, 64, 32], [1, 4, 1024, 32] and [1, 4, 4096, 32] (4 ranks) and
+      ``RING_WIDE_SHAPES`` (2), with n backward steps a rank for each
+      backward;
   (h) the sharded train step on the (1, 1) mesh at ``DemoConfig()``, 3
       steps with per-step launch counts, the first against ``train_step``
       on the same parameters and tokens; ``run_dryrun(1)`` in this process
       and then ``entry.dryrun_multichip(1)``, which spawns its own rank;
-  (i) print the ring phases' launches by block and mask, then
+  (i) print the ring phases' launches by block, mask and head width, then
       ``{"kernels": [...]}``, launches summed over (d), (e), (e'), (g) and
       (h) (for the ``_wide`` rows, over (e'); for a ring row at one block,
       its launches at that block and mask in (g); the second paths went on
@@ -129,7 +135,12 @@ COUNTERS = {
     "ring_attention_step_bwd": (ra, "bwd_launches"),
 }
 # the ring's gradient is checked at these [batch, heads, seq, head_dim]
+# on RING_RANKS replayed ranks
 RING_GRAD_SHAPES = ((1, 4, 1024, 32), (1, 4, 4096, 32))
+# the wide rings, forward and gradient, each replayed on 2 ranks: heads of
+# 256 (Gemma 7B's) over seq 2048 (blocks of 1024) and over Gemma's context
+# of 8192 (blocks of 4096)
+RING_WIDE_SHAPES = ((1, 4, 2048, 256), (1, 4, 8192, 256))
 # the wide phase: Llama 2's vocabulary and a sequence of 2048, the other
 # widths DemoConfig()'s
 WIDE = dict(vocab=32000, seq_len=2048, batch=2)
@@ -211,6 +222,8 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     build.build_all()
     print(f"build: nvcc {time.perf_counter() - t0:.2f} s, {len(build.sources())} sources")
+    # each kernel's registers a thread and spill bytes, from ptxas
+    print(json.dumps({"kernel_resources": {name: build.resources(name) for name in build.sources()}}))
 
 
 def main_path_inputs(config: demo.DemoConfig) -> dict:
@@ -574,7 +587,7 @@ def ring_block_row(name: str, shape, case: str, g) -> dict:
     attn_mask = sdpa_mask(s, mask)
     carry_bytes = sum(t.numel() * 4 for t in carry)
     return dict(
-        name=name, shape=list(shape), block=["fwd", s, mask], route="cuda",
+        name=name, shape=list(shape), block=["fwd", s, mask, d], route="cuda",
         source="operator_forge_torch/csrc/ring_attention.cu",
         replaces="operator_forge/tpu/demo.py:276", reps=10 if s >= 1024 else 100,
         fn=lambda: ra.ring_step(q, k, v, *scratch, my, origin),
@@ -606,15 +619,18 @@ RING_TIMED = (("ring_attention_step", (8, 4, 16, 32), "earlier"),
 
 def ring_rows(config: demo.DemoConfig) -> list[dict]:
     """The ring's block step at every mask case, at the ring of
-    ``DemoConfig()``'s heads over seq 64 on 4 ranks, a longer block and a
-    ragged one (also in bf16): the carry within rtol and atol 2e-5 of the
+    ``DemoConfig()``'s heads over seq 64 on 4 ranks, a longer block, a
+    ragged one (also in bf16) and heads of the wide kernel (256 at its
+    first block, 257, bf16 200): the carry within rtol and atol 2e-5 of the
     plain version, the same bits from two launches, and a later block's
     carry left bit for bit.  Each case's times at the first shape go on a
     line of their own; then one row a block of ``RING_TIMED``."""
     g = torch.Generator().manual_seed(11)
     first = (config.batch, config.n_heads, config.seq_len // RING_RANKS, config.head_dim)
     shapes = [(first, torch.float32), ((1, config.n_heads, 256, config.head_dim), torch.float32),
-              ((2, 3, 17, 16), torch.float32), ((2, 3, 17, 16), torch.bfloat16)]
+              ((2, 3, 17, 16), torch.float32), ((2, 3, 17, 16), torch.bfloat16),
+              ((1, 2, 64, 256), torch.float32), ((1, 2, 65, 257), torch.float32),
+              ((2, 2, 100, 200), torch.bfloat16)]
     cases = {}
     for shape, dtype in shapes:
         for case in RING_CASES:
@@ -656,8 +672,10 @@ def ring_bwd_case(shape, dtype, case, g):
 # a 64-row chunk, a 64-row tile, and the tiles whose chunks two blocks of
 # a cluster share (from 256 keys); heads not a multiple of 4, odd and
 # bf16, the widest it takes (also on 64-row tiles, one buffer) and one past
-# it; a head past the row kernel's former cap of 128; longer blocks, one
-# past the forward's former cap of 1024 keys
+# it (the wide kernel, as is the head of 160); longer blocks, one past the
+# forward's former cap of 1024 keys; on the wide kernel, heads of
+# 256 under (the row kernel), at and over 64 rows, a head of 257 (a second
+# output pass), bf16 heads of 200, and a split walk from 256 rows
 RING_BWD_SHAPES = (((8, 4, 16, 32), torch.float32), ((8, 4, 16, 32), torch.bfloat16),
                    ((1, 1, 63, 32), torch.float32), ((1, 1, 64, 32), torch.float32),
                    ((1, 1, 65, 32), torch.float32), ((1, 2, 96, 32), torch.float32),
@@ -668,7 +686,10 @@ RING_BWD_SHAPES = (((8, 4, 16, 32), torch.float32), ((8, 4, 16, 32), torch.bfloa
                    ((1, 2, 150, 20), torch.float32), ((2, 2, 100, 33), torch.bfloat16),
                    ((1, 2, 128, 128), torch.float32), ((16, 8, 128, 128), torch.float32),
                    ((1, 2, 128, 129), torch.float32), ((1, 2, 64, 160), torch.float32),
-                   ((1, 4, 256, 32), torch.float32), ((1, 4, 2048, 32), torch.float32))
+                   ((1, 4, 256, 32), torch.float32), ((1, 4, 2048, 32), torch.float32),
+                   ((1, 2, 63, 256), torch.float32), ((1, 2, 64, 256), torch.float32),
+                   ((1, 2, 65, 257), torch.float32), ((2, 2, 100, 200), torch.bfloat16),
+                   ((1, 2, 256, 256), torch.float32))
 
 # the backward step's timed rows, at every block the ring's gradient
 # (phase_ring_grad) launches it at
@@ -696,7 +717,7 @@ def ring_bwd_block_row(name: str, shape, case: str, g) -> dict:
     q, k, v, dout = inputs[:4]
     picked, sdpa_bwd = sdpa_backward(q, k, v, dout, sdpa_mask(s, mask))
     return dict(
-        name=name, shape=list(shape), block=["bwd", s, mask], route="cuda",
+        name=name, shape=list(shape), block=["bwd", s, mask, d], route="cuda",
         source="operator_forge_torch/csrc/ring_attention.cu",
         replaces="operator_forge/tpu/demo.py:276", reps=10 if s >= 1024 else 100,
         fn=lambda: ra.ring_step_bwd(*inputs, my, origin, *scratch),
@@ -741,15 +762,31 @@ def ring_bwd_rows() -> list[dict]:
     return [ring_bwd_block_row(name, shape, case, g) for name, shape, case in RING_BWD_TIMED]
 
 
+# the ring's wide kernels at heads of 256 (Gemma 7B's), at the blocks the
+# wide rings of phase (g) launch them at: 1024 keys earlier (a 2-rank ring
+# over 2048) and 4096 on the diagonal (Gemma's context of 8192 on 2 ranks)
+RING_WIDE_TIMED = (("ring_attention_step_hd256", (1, 4, 1024, 256), "earlier"),
+                   ("ring_attention_step_hd256_4096", (1, 4, 4096, 256), "diagonal"))
+RING_WIDE_BWD_TIMED = (("ring_attention_step_bwd_hd256", (1, 4, 1024, 256), "earlier"),
+                       ("ring_attention_step_bwd_hd256_4096", (1, 4, 4096, 256), "diagonal"))
+
+
+def wide_ring_rows() -> list[dict]:
+    """The ring step and its backward at ``RING_WIDE_TIMED`` and
+    ``RING_WIDE_BWD_TIMED``, checked and timed as the other ring rows."""
+    g = torch.Generator().manual_seed(31)
+    return ([ring_block_row(name, shape, case, g) for name, shape, case in RING_WIDE_TIMED]
+            + [ring_bwd_block_row(name, shape, case, g) for name, shape, case in RING_WIDE_BWD_TIMED])
+
+
 def second_path_rows() -> list[dict]:
     """The kernels that only shapes off the main path reach: attention's
     stream kernels, forward and backward, at heads of 256 (Gemma 7B's) at
     the wide step's seq of 2048 and DemoConfig()'s 4 heads, and at Llama 2
     7B's attention, 32 heads of 128 at its context of 4096, whose spilled
-    scores the tiles path cannot hold; the ring step's long kernel and the
-    backward's row kernel at heads of 256 at a block of 1024 keys,
-    earlier; the ring step at the domain check's block of 2048 keys,
-    earlier.  Each checked and timed as the main path's rows are."""
+    scores the tiles path cannot hold; the ring step at the domain check's
+    block of 2048 keys, earlier.  Each checked and timed as the main path's
+    rows are."""
     g = torch.Generator().manual_seed(29)
     rows = []
     for name, (b, s, n_heads, hd) in (("hd256", (1, 2048, 4, 256)),
@@ -758,10 +795,7 @@ def second_path_rows() -> list[dict]:
         dout = torch.randn((b, s, n_heads * hd), generator=g).cuda().bfloat16()
         rows += [attention_row(qkv, n_heads, f"causal_attention_{name}", reps=10),
                  attention_bwd_row(qkv, dout, n_heads, f"causal_attention_bwd_{name}", reps=10)]
-    shape = (1, 4, 1024, 256)
-    return rows + [ring_block_row("ring_attention_step_hd256", shape, "earlier", g),
-                   ring_bwd_block_row("ring_attention_step_bwd_hd256", shape, "earlier", g),
-                   ring_block_row("ring_attention_step_2048", (1, 4, 2048, 32), "earlier", g)]
+    return rows + [ring_block_row("ring_attention_step_2048", (1, 4, 2048, 32), "earlier", g)]
 
 
 def ring_step_f64(q, k, v, m, num, den, my: int, origin: int) -> tuple:
@@ -787,7 +821,9 @@ def domain_checks() -> None:
     columns (each in f32 and to bf16), attention at seq 2048, at heads of
     256 (Gemma 7B's), at seq 4096 of heads of 128, at heads of 200 (not a
     multiple of 8), 3073 and 4096 (past the former cap of 3072), each
-    repeated bit for bit, the ring step at a block of 2048 keys, and the
+    repeated bit for bit, the ring step at a block of 2048 keys, the ring
+    step and its backward at heads of 3073 and 4096, earlier and on the
+    diagonal, each repeated bit for bit, and the
     MLP's two products at odd widths (on small and large tiles), a depth
     of 1, a depth of 4096, 2188 column tiles and with every operand off a
     16-byte boundary.  The
@@ -895,6 +931,22 @@ def domain_checks() -> None:
     checks.append(("ring_attention_step", [1, 4, 2048, 32],
                    max(float((a - b).abs()[torch.isfinite(b)].max()) for a, b in zip(got, want)),
                    all(carry_close(a, b, scaled=True) for a, b in zip(got, want))))
+    # the ring step and its backward past the former cap on heads of 3072,
+    # on the wide kernels, earlier and on the diagonal
+    for shape in ((1, 2, 100, 3073), (1, 2, 100, 4096)):
+        for case in ("earlier", "diagonal"):
+            qkv, carry, my, origin = ring_case(shape, torch.float32, case, g)
+            got, same = run_twice(lambda: ra.ring_step(*qkv, *(t.clone() for t in carry), my, origin))
+            want = ra.ring_step_ref(*qkv, *carry, my, origin)
+            checks.append((f"ring_attention_step {case}", list(shape),
+                           max(float((a - b).abs()[torch.isfinite(b)].max()) for a, b in zip(got, want)),
+                           same and all(carry_close(a, b) for a, b in zip(got, want))))
+            inputs, my, origin, acc = ring_bwd_case(shape, torch.float32, case, g)
+            got, same = run_twice(lambda: ra.ring_step_bwd(*inputs, my, origin, *(t.clone() for t in acc)))
+            want = ra.ring_step_bwd_ref(*inputs, my, origin, *acc)
+            checks.append((f"ring_attention_step_bwd {case}", list(shape),
+                           max(float((a - b).abs().max()) for a, b in zip(got, want)),
+                           same and all(grads_close(a, b) for a, b in zip(got, want))))
     torch.cuda.synchronize()
     for name, shape, err, ok in checks:
         if not ok:
@@ -914,6 +966,7 @@ def phase_kernels(inputs: dict, config: demo.DemoConfig) -> list[dict]:
     rows += backward_rows(inputs)
     rows += ring_rows(config)
     rows += ring_bwd_rows()
+    rows += wide_ring_rows()
     second = second_path_rows()
     domain_checks()
     out = measure(rows)
@@ -1101,8 +1154,9 @@ def phase_train(config: demo.DemoConfig) -> dict:
     return launches
 
 
-# the ring phases' launches of each kernel by (direction, block, mask):
-# ("fwd" or "bwd", keys a block, "diagonal", "earlier" or "later")
+# the ring phases' launches of each kernel by (direction, block, mask, head
+# width): ("fwd" or "bwd", keys a block, "diagonal", "earlier" or "later",
+# head_dim)
 RING_BLOCK_LAUNCHES = collections.Counter()
 
 
@@ -1121,7 +1175,7 @@ def replay_ring(q, k, v, n: int) -> torch.Tensor:
         for j in range(n):
             origin = (r - j) % n
             ra.ring_step(qs[r], ks[origin], vs[origin], m, num, den, r, origin)
-            RING_BLOCK_LAUNCHES["fwd", s, mask_of(r, origin)] += 1
+            RING_BLOCK_LAUNCHES["fwd", s, mask_of(r, origin), d] += 1
         out.append(num / den)
     return torch.cat(out, dim=2)
 
@@ -1131,11 +1185,13 @@ def phase_ring(config: demo.DemoConfig) -> dict:
     dense at rtol and atol 2e-5: at [8, 4, 64, 32] (``DemoConfig()``'s
     batch, heads and head width at seq 64) and [1, 4, 1024, 32] replayed on
     4 ranks, and at [1, 4, 8192, 32] on 2 (blocks of 4096 keys, an earlier
-    one among them)."""
+    one among them), and at ``RING_WIDE_SHAPES`` on 2 (the wide
+    kernels)."""
     g = torch.Generator().manual_seed(13)
     shapes = [(config.batch, config.n_heads, config.seq_len, config.head_dim),
-              (1, config.n_heads, 1024, config.head_dim), (1, config.n_heads, 8192, config.head_dim)]
-    ranks = [RING_RANKS, RING_RANKS, 2]
+              (1, config.n_heads, 1024, config.head_dim), (1, config.n_heads, 8192, config.head_dim),
+              *RING_WIDE_SHAPES]
+    ranks = [RING_RANKS, RING_RANKS, 2, *(2 for _ in RING_WIDE_SHAPES)]
     inputs = [[torch.randn(shape, generator=g).cuda() for _ in range(3)] for shape in shapes]
     mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("seq",))
     result, launches = {}, dict.fromkeys(COUNTERS, 0)
@@ -1184,7 +1240,7 @@ def replay_ring_grad(q, k, v, dout, n: int) -> tuple:
         for j in range(n):
             origin = (r - j) % n
             ra.ring_step(qs[r], ks[origin], vs[origin], m, num, den, r, origin)
-            RING_BLOCK_LAUNCHES["fwd", s, mask_of(r, origin)] += 1
+            RING_BLOCK_LAUNCHES["fwd", s, mask_of(r, origin), d] += 1
         stats.append((m, den, (dos[r].float() * (num / den)).sum(dim=-1, keepdim=True)))
     dq, dk, dv = ([torch.zeros((b, h, s, d), device=q.device) for _ in range(n)] for _ in range(3))
     for j in range(n):
@@ -1192,7 +1248,7 @@ def replay_ring_grad(q, k, v, dout, n: int) -> tuple:
             origin = (r - j) % n
             ra.ring_step_bwd(qs[r], ks[origin], vs[origin], dos[r], *stats[r], r, origin,
                              dq[r], dk[origin], dv[origin])
-            RING_BLOCK_LAUNCHES["bwd", s, mask_of(r, origin)] += 1
+            RING_BLOCK_LAUNCHES["bwd", s, mask_of(r, origin), d] += 1
     return tuple(torch.cat(t, dim=2) for t in (dq, dk, dv))
 
 
@@ -1201,7 +1257,7 @@ def ring_of_one(q, k, v, mesh) -> torch.Tensor:
     one: its block steps, all on the diagonal, tallied by block."""
     before = ra.launches
     out = demo.ring_attention(q, k, v, mesh, axis="seq")
-    RING_BLOCK_LAUNCHES["fwd", q.shape[2], "diagonal"] += ra.launches - before
+    RING_BLOCK_LAUNCHES["fwd", q.shape[2], "diagonal", q.shape[3]] += ra.launches - before
     return out
 
 
@@ -1213,20 +1269,22 @@ def ring_attention_grad(q, k, v, dout, mesh) -> tuple:
     out = ring_of_one(*live, mesh)
     before = ra.bwd_launches
     out.backward(dout)
-    RING_BLOCK_LAUNCHES["bwd", q.shape[2], "diagonal"] += ra.bwd_launches - before
+    RING_BLOCK_LAUNCHES["bwd", q.shape[2], "diagonal", q.shape[3]] += ra.bwd_launches - before
     return tuple(t.grad for t in live)
 
 
 def phase_ring_grad(config: demo.DemoConfig) -> dict:
-    """The ring's gradient: the replayed 4-rank ring's backward and
-    ``backward()`` through ``ring_attention`` on the group of one, at
-    ``DemoConfig()``'s full width [8, 4, 64, 32] and at
-    ``RING_GRAD_SHAPES``, each against autograd of
-    ``dense_causal_attention`` on the card within ``grads_close`` (rtol and
-    atol 2e-5 of each gradient's max); exactly n backward steps a rank for
-    each backward."""
+    """The ring's gradient: the replayed ring's backward and ``backward()``
+    through ``ring_attention`` on the group of one, at ``DemoConfig()``'s
+    full width [8, 4, 64, 32] and at ``RING_GRAD_SHAPES`` (the replay on
+    ``RING_RANKS`` ranks) and at ``RING_WIDE_SHAPES`` (on 2), each against
+    autograd of ``dense_causal_attention`` on the card within
+    ``grads_close`` (rtol and atol 2e-5 of each gradient's max); exactly n
+    backward steps a rank for each backward."""
     g = torch.Generator().manual_seed(23)
-    shapes = [(config.batch, config.n_heads, config.seq_len, config.head_dim), *RING_GRAD_SHAPES]
+    shapes = [(config.batch, config.n_heads, config.seq_len, config.head_dim), *RING_GRAD_SHAPES,
+              *RING_WIDE_SHAPES]
+    ranks = [RING_RANKS] * (1 + len(RING_GRAD_SHAPES)) + [2] * len(RING_WIDE_SHAPES)
     inputs = [[torch.randn(shape, generator=g).cuda() for _ in range(4)] for shape in shapes]
     dense = []
     for q, k, v, dout in inputs:
@@ -1235,20 +1293,20 @@ def phase_ring_grad(config: demo.DemoConfig) -> dict:
         dense.append([t.grad for t in live])
     mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("seq",))
     result, launches = {}, dict.fromkeys(COUNTERS, 0)
-    for what, n, run in (
-        (f"replayed {RING_RANKS}-rank ring", RING_RANKS,
-         lambda q, k, v, dout: replay_ring_grad(q, k, v, dout, RING_RANKS)),
-        ("ring_attention on an NCCL group of one", 1,
-         lambda q, k, v, dout: ring_attention_grad(q, k, v, dout, mesh)),
+    for what, replayed, run in (
+        ("replayed ring", True, lambda q, k, v, dout, n: replay_ring_grad(q, k, v, dout, n)),
+        ("ring_attention on an NCCL group of one", False,
+         lambda q, k, v, dout, n: ring_attention_grad(q, k, v, dout, mesh)),
     ):
         reset_counts()
-        grads = [run(*x) for x in inputs]
+        grads = [run(*x, n) for x, n in zip(inputs, ranks)]
         torch.cuda.synchronize()
         counts = read_counts()
+        expected = sum(n * n for n in ranks) if replayed else len(shapes)
         for name in ("ring_attention_step", "ring_attention_step_bwd"):
-            if counts[name] != n * n * len(shapes):
-                fail(f"{what}: {name} launched {counts[name]} times, not {n} a rank for each of "
-                     f"{len(shapes)} calls")
+            if counts[name] != expected:
+                fail(f"{what}: {name} launched {counts[name]} times, not {expected} (n a rank for "
+                     f"each of {len(shapes)} calls)")
         errs = []
         for shape, got, want in zip(shapes, grads, dense):
             for name, a, w in zip(("dq", "dk", "dv"), got, want):
@@ -1258,8 +1316,8 @@ def phase_ring_grad(config: demo.DemoConfig) -> dict:
                     fail(f"{what}: {name} at {shape} differs from dense attention's by "
                          f"{float((a - w).abs().max()):.3e} (max |g| {float(w.abs().max()):.3e})")
             errs.append(max(float((a - w).abs().max() / w.abs().max()) for a, w in zip(got, want)))
-        result[what] = {"shapes": shapes, "launches": counts["ring_attention_step_bwd"],
-                        "max_err_of_max_grad": errs}
+        result[what] = {"shapes": shapes, "ranks": ranks if replayed else 1,
+                        "launches": counts["ring_attention_step_bwd"], "max_err_of_max_grad": errs}
         launches = {name: launches[name] + counts[name] for name in COUNTERS}
     print(json.dumps({"ring_grad": result}))
     return launches
@@ -1395,7 +1453,7 @@ def main() -> None:
         # said on its line: copied into another tree (with its kernels'
         # helpers), this times that tree's kernels at the same shapes
         build.build_all()
-        print(json.dumps({"second_paths": measure(second_path_rows(), strict=False)}))
+        print(json.dumps({"second_paths": measure(second_path_rows() + wide_ring_rows(), strict=False)}))
         return
     config = demo.DemoConfig()
     inputs = main_path_inputs(config)
@@ -1420,8 +1478,8 @@ def main() -> None:
     total["matmul_gelu_wide"] = wide["matmul_gelu"]
     total["matmul_gelu_bwd_wide"] = wide["matmul_gelu_bwd"]
     print(json.dumps({"ring_block_launches": [
-        {"direction": d, "block": b, "mask": m, "launches": n}
-        for (d, b, m), n in sorted(RING_BLOCK_LAUNCHES.items())]}))
+        {"direction": d, "block": b, "mask": m, "head_dim": hd, "launches": n}
+        for (d, b, m, hd), n in sorted(RING_BLOCK_LAUNCHES.items())]}))
     for line in kernels:
         # a ring row at one block: its launches at that block in the ring
         # phases (the first row of each direction also carries the total)

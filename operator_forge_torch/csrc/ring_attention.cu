@@ -61,9 +61,11 @@
 // at [1, 4, 4096, 32] on the diagonal.  The forward at those blocks is
 // bound the same way by its two products and the softmax, 4 d + 4
 // operations a pair: 0.0661 ms at [1, 4, 4096, 32] on the diagonal,
-// 0.132 ms earlier.
+// 0.132 ms earlier.  At Gemma 7B's heads of 256 the same counts bound the
+// forward at 0.0644 ms and the backward at 0.160 ms at [1, 4, 1024, 256]
+// earlier, and at 0.515 and 1.28 ms at [1, 4, 4096, 256] on the diagonal.
 //
-// Forward design: three kernels, one launch a call, chosen by shape
+// Forward design: four kernels, one launch a call, chosen by shape
 // (fwd_plan).  Blocks under kFwdTileMinSeq keys with heads of up to
 // kShortHeadDim and at most 65535 batches and heads take ring_step_kernel,
 // one warp per query row on a (row group, head, batch) grid, so the chain
@@ -93,43 +95,68 @@
 // the row sums and p v, which add into 4 rows x kNc columns of registers a
 // thread, in ascending key order.  Chunks arrive by cp.async into two
 // buffers, the next in flight while this one is used.  Tile height and
-// clusters go by grid size (fwd_plan).  What neither takes, heads over
-// kTileHeadDim and blocks under kTileMinSeq keys with more than 65535
-// batches or heads, goes to ring_step_long_kernel, a warp a row on a flat
-// grid, which also scores the keys twice, chunk by chunk (the chunk shrinks
-// for a wide head), and takes a wide head's output columns 128 at a time.
+// clusters go by grid size (fwd_plan).
+// Heads over kTileHeadDim take ring_step_wide_kernel from kTileMinSeq keys
+// (and under it past heads of kWideResident): the tiled kernel's two walks
+// with the head in column chunks, so that any width runs without a cap.
+// A 64-row tile scores each 64-key chunk kWideC columns at a time, the
+// thread's 16 FMA chains running on across the column chunks in ascending
+// order (so both walks give the same bits); q stays staged for heads up to
+// kWideResident (66.5 KB at 256) and streams beside each key chunk past
+// them.  Every chunk, of keys, q or values, arrives by cp.async into one of
+// two slots of a pipeline, the next in flight while this one is used.
+// Walk two writes p to shared memory and adds p times the values' chunks of
+// kWideC columns into 4 rows x 4 columns a chunk of each thread's
+// registers: 256 output columns a walk, so a head of 256 is scored twice
+// and a wider head once more for each further 256 columns.  Two blocks of
+// a cluster split the key walk of a short grid as the tiled kernel's do.
+// What none of these takes, blocks under kTileMinSeq keys with more than
+// 65535 batches or heads or with heads of kTileHeadDim to kWideResident,
+// goes to ring_step_long_kernel, a warp a row on a flat grid, which also
+// scores the keys twice, chunk by chunk, and takes the output columns 128
+// at a time.
 //
-// Backward design: two roles in one launch.  Query rows sum dq over the
-// keys they see; key rows sum dk and dv over the queries that see them; so
-// no output has two writers and no sum needs an atomic.  Blocks of at
-// least kTileMinSeq keys with heads of up to kTileHeadDim take the tiled
-// kernel, which shares each staged chunk of the other side among a tile of
-// 32 or 64 rows and each shared load among several FMAs: a thread holds 4
-// x 4 pairs' scores and dout . v in registers, 16-byte loads feeding 16
-// FMAs of each, forms p and dS there, passes them through shared memory,
-// and adds them times the other side's rows into its 4 rows' sums of its
-// columns, which stay in registers over every chunk.  Chunks of 64 rows
-// arrive by cp.async into two buffers, the next in flight while this one
-// is used; only the chunks the causal mask leaves are staged.  The tile's
-// height goes by grid size (bwd_plan): 64 rows where their grid
-// gives every SM two blocks, else 32; 64-row tiles of a diagonal block go
-// in pairs (t with tiles - 1 - t), so that every block does the same work.
-// Where long tiles still leave the card short of blocks, the
-// two blocks of a cluster share each tile's chunks, and the second's sums
-// reach the first through distributed shared memory, which adds them
-// after its own.  Its launch bounds ask for as many blocks an SM as shared
-// memory holds.
-// Shorter blocks and wider heads go to the row kernel: a warp a row (the first half of the grid query
-// rows, the second key rows), a block of kWarps rows staging the other
-// side chunk by chunk; lane j computes the score, p, dout . v and dS of the
-// pairs j, j + 32, ... of the chunk into the warp's buffers, and then lane
-// c adds p and dS times the staged rows into the row's f32 sums of columns
-// c, c + 32, ..., which sit in shared memory, so a head of any width up to
-// kMaxHeadDim takes one pass.  Each sum of either kernel runs over the
-// other side in ascending order from 0 and is added to its accumulator
-// once at the end.
+// Backward design: each output has one writer, so no sum needs an atomic.
+// Query rows sum dq over the keys they see; key rows sum dk and dv over the
+// queries that see them.  Blocks of at least kTileMinSeq keys with heads of
+// up to kTileHeadDim take the tiled kernel, two roles in one launch, which
+// shares each staged chunk of the other side among a tile of 32 or 64 rows
+// and each shared load among several FMAs: a thread holds 4 x 4 pairs'
+// scores and dout . v in registers, 16-byte loads feeding 16 FMAs of each,
+// forms p and dS there, passes them through shared memory, and adds them
+// times the other side's rows into its 4 rows' sums of its columns, which
+// stay in registers over every chunk.  Chunks of 64 rows arrive by
+// cp.async into two buffers, the next in flight while this one is used;
+// only the chunks the causal mask leaves are staged.  The tile's height
+// goes by grid size (bwd_plan): 64 rows where their grid gives every SM two
+// blocks, else 32; 64-row tiles of a diagonal block go in pairs (t with
+// tiles - 1 - t), so that every block does the same work.  Where long
+// tiles still leave the card short of blocks, the two blocks of a cluster
+// share each tile's chunks, and the second's sums reach the first through
+// distributed shared memory, which adds them after its own.  Its launch
+// bounds ask for as many blocks an SM as shared memory holds.
+// Heads over kTileHeadDim take ring_step_bwd_wide_kernel from kTileMinSeq
+// rows (and under it past heads of kWideResident): 64-row tiles in three
+// roles, dq, dk and dv, so that a thread's sums stay at 64 registers for
+// 256 output columns a pass, a wider head taking one more pass, on the
+// grid, for each further 256.  Per chunk of the other side, the tile's and
+// the other side's rows arrive kWideC columns at a time through the
+// forward's pipeline and add into the 4 x 4 scores (and, for dq and dk,
+// dout . v) of each thread; dS (or, for dv, p) goes to shared memory, and
+// each of the pass's kWideC-column chunks of k, q or dout then adds into
+// the thread's 4 x 4 sums of it.  dv never scores dout . v.  Diagonal
+// tiles go in pairs; elsewhere two blocks of a cluster split each tile's
+// chunks from kSplitChunks chunks (wide_bwd_plan).
+// Shorter blocks take the row kernel, up to heads of kWideResident: a warp
+// a row (the first half of the grid query rows, the second key rows), a
+// block of kWarps rows staging the other side chunk by chunk; lane j
+// computes the score, p, dout . v and dS of the pairs j, j + 32, ... of the
+// chunk into the warp's buffers, and then lane c adds p and dS times the
+// staged rows into the row's f32 sums of columns c, c + 32, ..., which sit
+// in shared memory.  Each sum of every kernel runs over the other side in
+// ascending order from 0 and is added to its accumulator once at the end.
 //
-// Every sum of both kernels runs in a fixed order with no atomics, so a
+// Every sum of every kernel runs in a fixed order with no atomics, so a
 // launch repeats bit for bit.
 
 #include <cuda_bf16.h>
@@ -151,7 +178,6 @@ constexpr int kChunk = 128;         // most keys or values staged at a time
 constexpr int kWarps = 4;           // rows per block
 constexpr int kMaxSeq = 1024;       // the longest block whose score rows stay in shared memory
 constexpr int kShortHeadDim = 128;  // the widest head of the forward's first kernel
-constexpr int kMaxHeadDim = 3072;   // the widest head whose rows fit in shared memory
 constexpr int kCols = kShortHeadDim / 32;  // output columns a lane owns at a time
 constexpr int kSmemFloats = of::kMaxSmemBytes / sizeof(float);
 
@@ -315,7 +341,7 @@ ring_step_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Any block, head up to kMaxHeadDim and batch on one flat grid: the keys
+// Any block, head and batch on one flat grid: the keys
 // are scored twice, chunk by chunk, once for the block max and once for
 // exp, the sums and p v, with the same FMA order and so the same bits as
 // the kernel above; p is kept for one chunk at a time, and a head wider
@@ -1149,6 +1175,583 @@ ring_step_bwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- wide heads: register tiles over column chunks ----------------------
+
+constexpr int kWideTy = 16;               // a wide tile's rows are 4 kWideTy, its threads 16 kWideTy
+constexpr int kWideRows = 4 * kWideTy;
+constexpr int kWideC = 64;                // columns of a staged chunk
+constexpr int kWideLd = kWideC + 4;       // its row stride: 8 rows 4 banks apart
+constexpr int kWidePass = 4;              // output chunks a pass: 256 columns
+constexpr int kWideResident = 256;        // the widest head whose query tile stays staged
+constexpr long long kWideFullGrid = 128;  // about a wide block for each of the card's 132 SMs
+
+__host__ __device__ constexpr int round_up(int x, int to) { return (x + to - 1) / to * to; }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+// Stage rows [r0, r0 + n) of one head's [s, hd] plane, columns [c0, c0 +
+// w) with w = min(width, hd - c0), into dst [rows][ld] as f32: 16-byte
+// cp.async copies for f32 rows where vec, else loads that widen.  Every
+// other value of dst's rows x width becomes 0, so that the FMA chains and
+// the sums run over zeros past hd and past the last row.  A whole chunk
+// (w == width) takes the branch whose row length the compiler knows.  The
+// caller commits and waits.
+template <typename T>
+__device__ __forceinline__ void stage_cols(float* dst, int ld, int rows, int width,
+                                           const T* __restrict__ src, int r0, int n, int hd, int c0,
+                                           bool vec) {
+  const int w = min(width, hd - c0);
+  const auto copy = [&](int cols) {
+    if constexpr (std::is_same<T, float>::value) {
+      if (vec) {
+        const int per_row = cols / 4;
+        for (int i = threadIdx.x; i < n * per_row; i += blockDim.x) {
+          const int j = i / per_row, c = (i - j * per_row) * 4;
+          of::cp_async16(dst + j * ld + c, src + (size_t)(r0 + j) * hd + c0 + c);
+        }
+        return;
+      }
+    }
+    of::stage_rows(dst, src + c0, hd, r0, n, cols, ld, vec);
+  };
+  if (w == width)
+    copy(width);
+  else
+    copy(w);
+  if (n < rows || w < width)
+    for (int i = threadIdx.x; i < rows * width; i += blockDim.x) {
+      const int j = i / width, c = i - j * width;
+      if (j >= n || c >= w) dst[j * ld + c] = 0.0f;
+    }
+}
+
+// Run items [0, n) through two slots of shared memory: issue(t, b) starts
+// item t's copies into slot b, compute(t, b) uses them, with item t + 1 in
+// flight meanwhile.  One barrier an item: it sees item t's copies land and
+// every thread done with item t - 1, whose slot then takes item t + 1 (a
+// third slot, two items in flight, gained nothing on the card).  Every
+// thread of the block calls it; it ends with a barrier, so the slots are
+// free after it.
+template <typename Issue, typename Compute>
+__device__ __forceinline__ void pipeline(int n, const Issue& issue, const Compute& compute) {
+  if (n <= 0) return;
+  issue(0, 0);
+  of::cp_async_commit();
+  for (int t = 0; t < n; ++t) {
+    of::cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < n) {
+      issue(t + 1, (t + 1) & 1);
+      of::cp_async_commit();
+    }
+    compute(t, t & 1);
+  }
+  __syncthreads();
+}
+
+// sc[a][b] += x row ty + kWideTy a . y row tx + 16 b over kWideC columns,
+// x's rows ldx floats apart and y's kWideLd: the next steps of the 16
+// pairs' FMA chains, in ascending column order, fed by 16-byte shared loads
+__device__ __forceinline__ void score_chunk(float (&sc)[4][4], const float* x, int ldx,
+                                            const float* y, int ty, int tx) {
+  const float* xr = x + ty * ldx;
+  const float* yr = y + tx * kWideLd;
+#pragma unroll 1
+  for (int c = 0; c < kWideC; c += 4) {
+    float4 xs[4], ys[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) xs[a] = *reinterpret_cast<const float4*>(xr + kWideTy * a * ldx + c);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) ys[b] = *reinterpret_cast<const float4*>(yr + 16 * b * kWideLd + c);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) sc[a][b] = dot4(xs[a], ys[b], sc[a][b]);
+  }
+}
+
+// The sum of row a (< 4) and column 4 g + e (g < kWidePass, e < 4) among a
+// thread's 16 kWidePass output sums
+__host__ __device__ constexpr int sum_at(int a, int g, int e) { return (a * kWidePass + g) * 4 + e; }
+
+// acc[sum_at(a, g, e)] += w[j][4 ty + a] y[j][4 tx + e] over rows j < n of
+// a staged output chunk g (y, rows kWideLd floats apart) and of the
+// buffer w (rows kLdB apart): the chunk's step of the thread's 4 x 4 sums,
+// in ascending order of j; g is the same for every thread, the indices
+// into acc constant
+template <int kLdB>
+__device__ __forceinline__ void add_chunk(float* acc, const float* w, const float* y, int n, int g,
+                                          int ty, int tx) {
+#pragma unroll
+  for (int gg = 0; gg < kWidePass; ++gg) {
+    if (gg != g) continue;
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) {
+      const float4 w4 = *reinterpret_cast<const float4*>(w + j * kLdB + 4 * ty);
+      const float4 y4 = *reinterpret_cast<const float4*>(y + j * kWideLd + 4 * tx);
+      const float wv[4] = {w4.x, w4.y, w4.z, w4.w}, yv[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[sum_at(a, gg, e)] = fmaf(wv[a], yv[e], acc[sum_at(a, gg, e)]);
+    }
+  }
+}
+
+// A thread's sums of the other parts of its cluster, added to its own in
+// rank order by part 0: each part past 0 leaves its kCount floats in its
+// shared memory at `at` (free by then), part 0 reads them there.  Returns
+// whether this block is part 0.
+template <int kCount>
+__device__ __forceinline__ bool gather_parts(float (&sums)[kCount], float* at, int part, int parts) {
+  cg::cluster_group cluster = cg::this_cluster();
+  float* mine = at + threadIdx.x * kCount;
+  if (part > 0)
+#pragma unroll
+    for (int i = 0; i < kCount; ++i) mine[i] = sums[i];
+  cluster.sync();
+  if (part == 0)
+    for (int from = 1; from < parts; ++from) {
+      const float* theirs = cluster.map_shared_rank(mine, from);
+#pragma unroll
+      for (int i = 0; i < kCount; ++i) sums[i] = __fadd_rn(sums[i], theirs[i]);
+    }
+  cluster.sync();  // the parts' shared memory outlives part 0's reads
+  return part == 0;
+}
+
+// The wide forward's shared memory, as offsets in floats: the tile's row
+// maxima at 0 (read by a cluster's other blocks), then q where it stays
+// staged (heads of one output pass), two slots of the pipeline, p; and
+// after each pass, from kWideRows on, where the parts' sums meet (16
+// kWidePass + 4 floats a thread)
+struct WideFwdLayout {
+  int slots, p, total;
+};
+
+__host__ __device__ inline WideFwdLayout wide_fwd_layout(bool resident, int hd) {
+  const int q = resident ? kWideRows * (round_up(hd, kWideC) + 4) : 0;
+  const int slot = (resident ? kTileOthers : kWideRows + kTileOthers) * kWideLd;
+  WideFwdLayout l;
+  l.slots = kWideRows + q;
+  l.p = l.slots + 2 * slot;
+  l.total = imax(l.p + kTileOthers * (kWideRows + 4), kWideRows + 16 * kWideTy * (16 * kWidePass + 4));
+  return l;
+}
+
+// One tile of the wide forward step: kWideRows query rows from r0 against
+// the keys they see, in chunks of kTileOthers keys, each scored a
+// kWideC-column chunk at a time through `pipeline`: thread (ty, tx) holds
+// the scores of its rows ty + kWideTy a and the chunk's keys tx + 16 b in
+// registers, one FMA chain over d in ascending order that runs on across
+// the column chunks.  q stays staged where kRes (heads up to
+// kWideResident), else streams beside each key chunk.  Pass one keeps each
+// row's running max (over the 16 tx, then over the parts, as the tiled
+// forward does); pass two scores again with the same code, so with the
+// same bits, forms p into the row sums and shared memory, and adds p times
+// each staged kWideC-column chunk of values into the thread's 4 rows x 4
+// columns of that chunk, in registers, in ascending key order: 256 output
+// columns a pass, and a head wider than that one more pass two for each
+// further 256.  With more than one of `parts` (the blocks of a cluster),
+// part p takes the p-th run of whole key chunks; the parts' maxima meet
+// before pass two, and part 0 adds the others' sums to its own in rank
+// order before it writes, so every part has read m before it is written.
+template <typename T, bool kRes>
+__device__ __forceinline__ void wide_fwd_tile(const T* __restrict__ q, const T* __restrict__ k,
+                                              const T* __restrict__ v, float* __restrict__ m,
+                                              float* __restrict__ num, float* __restrict__ den,
+                                              float* smem, int s, int hd, long long lag, bool vec,
+                                              size_t plane, int r0, int part, int parts) {
+  constexpr int kTy = kWideTy;
+  constexpr int kRows = kWideRows;  // query rows of a tile
+  constexpr int kN = kTileOthers;   // keys of a chunk
+  constexpr int kLdB = kRows + 4;   // row stride of the p buffer
+  constexpr int kSlot = (kRes ? kN : kRows + kN) * kWideLd;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // a warp holds 2 ty by the 16 tx: a row's max and sum are shuffles
+  // within half a warp
+  const int ty = (tid >> 5) * 2 + (lane >> 4), tx = lane & 15;
+  const int rows = min(kRows, s - r0);
+  // query i sees key j when j <= lag + i: the keys the tile sees
+  const int n_keys = (int)max(0LL, min((long long)s, lag + r0 + rows));
+  if (n_keys == 0) return;  // a later block: the carry stays as it is
+  const int2 range = part_range(0, n_keys, part, parts);
+  const int lo = range.x, hi = range.y;
+  const WideFwdLayout lay = wide_fwd_layout(kRes, hd);
+  float* row_max = smem;             // [kRows] the part's row max
+  float* own_q = smem + kRows;       // [kRows][ldq] q, where kRes
+  float* slots = smem + lay.slots;   // [2][kSlot] (q and) keys, or values
+  float* p_buf = smem + lay.p;       // [kN][kLdB] p, own rows in slot order
+  const int ldq = kRes ? round_up(hd, kWideC) + 4 : kWideLd;
+
+  const float scale = 1.0f / sqrtf((float)hd);
+  const size_t stat = plane * s, base = stat * hd;
+  const int n_chunks = (hi - lo + kN - 1) / kN;
+  const int n_cols = (hd + kWideC - 1) / kWideC;  // the head's column chunks
+  if (kRes && lo < hi) stage_cols(own_q, ldq, kRows, ldq - 4, q + base, r0, rows, hd, 0, vec);
+
+  // column chunk kc of key chunk c (and of q where it streams)
+  const auto issue_keys = [&](int c, int kc, float* slot) {
+    const int o0 = lo + c * kN;
+    if (!kRes) stage_cols(slot, kWideLd, kRows, kWideC, q + base, r0, rows, hd, kc * kWideC, vec);
+    stage_cols(kRes ? slot : slot + kRows * kWideLd, kWideLd, kN, kWideC, k + base, o0,
+               min(kN, hi - o0), hd, kc * kWideC, vec);
+  };
+  float sc[4][4];
+  const auto score = [&](int kc, const float* slot) {
+    if (kc == 0)
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) sc[a][b] = 0.0f;
+    score_chunk(sc, kRes ? own_q + kc * kWideC : slot, ldq, kRes ? slot : slot + kRows * kWideLd,
+                ty, tx);
+  };
+
+  // pass one: the running max of the scores the mask leaves
+  float rmax[4], new_m[4], shift[4], corr[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) rmax[a] = -INFINITY;
+  pipeline(
+      n_chunks * n_cols,
+      [&](int t, int b) { issue_keys(t / n_cols, t % n_cols, slots + b * kSlot); },
+      [&](int t, int b) {
+        const int kc = t % n_cols;
+        score(kc, slots + b * kSlot);
+        if (kc < n_cols - 1) return;
+        const int o0 = lo + t / n_cols * kN;
+#pragma unroll
+        for (int bb = 0; bb < 4; ++bb)
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const int o = o0 + tx + 16 * bb, r = r0 + ty + kTy * a;
+            if (r < s && o < hi && o <= lag + r) rmax[a] = fmaxf(rmax[a], __fmul_rn(sc[a][bb], scale));
+          }
+      });
+  // each row's block max over the 16 tx, then over the parts
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+    for (int o = 8; o > 0; o >>= 1) rmax[a] = fmaxf(rmax[a], __shfl_xor_sync(0xffffffffu, rmax[a], o));
+  if (parts > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    if (tx == 0)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) row_max[ty + kTy * a] = rmax[a];
+    cluster.sync();
+    for (int from = 0; from < parts; ++from) {
+      if (from == part) continue;
+      const float* theirs = cluster.map_shared_rank(row_max, from);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) rmax[a] = fmaxf(rmax[a], theirs[ty + kTy * a]);
+    }
+  }
+  // the new running max, the guarded shift and the correction
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = r0 + ty + kTy * a;
+    const float m_old = r < s ? m[stat + r] : -INFINITY;
+    new_m[a] = fmaxf(m_old, rmax[a]);
+    shift[a] = isinf(new_m[a]) ? 0.0f : new_m[a];
+    corr[a] = expf(m_old - shift[a]);
+  }
+
+  for (int op = 0; op * kWidePass < n_cols; ++op) {
+    // pass two: each key chunk scored again, then its values' chunks of
+    // this output pass
+    const int groups = min(kWidePass, n_cols - op * kWidePass);
+    const int per = n_cols + groups;
+    float sums[16 * kWidePass + 4];  // the 4 x 4 sums of each chunk (sum_at), then the row sums
+    float* total = sums + 16 * kWidePass;
+#pragma unroll
+    for (int i = 0; i < 16 * kWidePass + 4; ++i) sums[i] = 0.0f;
+    pipeline(
+        n_chunks * per,
+        [&](int t, int b) {
+          const int c = t / per, j = t % per;
+          float* slot = slots + b * kSlot;
+          if (j < n_cols) {
+            issue_keys(c, j, slot);
+          } else {
+            const int o0 = lo + c * kN;
+            stage_cols(slot, kWideLd, kN, kWideC, v + base, o0, min(kN, hi - o0), hd,
+                       (op * kWidePass + j - n_cols) * kWideC, vec);
+          }
+        },
+        [&](int t, int b) {
+          const int j = t % per;
+          const float* slot = slots + b * kSlot;
+          const int o0 = lo + t / per * kN;
+          if (j >= n_cols) {
+            // num += p v over the chunk's keys, value chunk j - n_cols
+            add_chunk<kLdB>(sums, p_buf, slot, min(kN, hi - o0), j - n_cols, ty, tx);
+            return;
+          }
+          score(j, slot);
+          if (j < n_cols - 1) return;
+          // p of the pairs the mask leaves, zeros elsewhere, into the row
+          // sums and the buffer, where key o's row holds own row ty + kTy
+          // a at slot 4 ty + a
+#pragma unroll
+          for (int bb = 0; bb < 4; ++bb) {
+            float pv[4];
+#pragma unroll
+            for (int a = 0; a < 4; ++a) {
+              const int o = o0 + tx + 16 * bb, r = r0 + ty + kTy * a;
+              const bool live = r < s && o < hi && o <= lag + r;
+              pv[a] = live ? expf(__fmul_rn(sc[a][bb], scale) - shift[a]) : 0.0f;
+              total[a] += pv[a];
+            }
+            *reinterpret_cast<float4*>(p_buf + (tx + 16 * bb) * kLdB + 4 * ty) =
+                make_float4(pv[0], pv[1], pv[2], pv[3]);
+          }
+        });
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      for (int o = 8; o > 0; o >>= 1) total[a] += __shfl_xor_sync(0xffffffffu, total[a], o);
+    if (parts > 1 && !gather_parts(sums, smem + kRows, part, parts)) continue;
+
+    // the carry, rounding the product and then the sum
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int r = r0 + ty + kTy * a;
+      if (r >= s) continue;
+      if (op == 0 && tx == 0) {
+        m[stat + r] = new_m[a];
+        den[stat + r] = __fadd_rn(__fmul_rn(den[stat + r], corr[a]), total[a]);
+      }
+#pragma unroll
+      for (int g = 0; g < kWidePass; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = (op * kWidePass + g) * kWideC + 4 * tx + e;
+          if (c >= hd) continue;
+          const size_t at = (stat + r) * hd + c;
+          num[at] = __fadd_rn(__fmul_rn(num[at], corr[a]), sums[sum_at(a, g, e)]);
+        }
+    }
+  }
+}
+
+// The forward step for heads over kTileHeadDim.  Block b of the grid is
+// part b % parts of unit u = b / parts, which takes plane u % planes and
+// tile tiles - 1 - u / planes, heaviest first.
+template <typename T, bool kRes>
+__global__ void __launch_bounds__(16 * kWideTy, 1)
+ring_step_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      float* __restrict__ m, float* __restrict__ num, float* __restrict__ den,
+                      int s, int hd, int q_block, int k_block, bool vec, int tiles,
+                      unsigned int planes, int parts) {
+  extern __shared__ __align__(16) float tile_smem[];
+  const int part = (int)(blockIdx.x % parts);
+  const unsigned int unit = blockIdx.x / parts;
+  const int t = tiles - 1 - (int)(unit / planes);
+  const long long lag = ((long long)q_block - k_block) * s;
+  wide_fwd_tile<T, kRes>(q, k, v, m, num, den, tile_smem, s, hd, lag, vec, unit % planes,
+                         t * kWideRows, part, parts);
+}
+
+// The wide backward's shared memory, in floats: two slots, each a scoring
+// chunk's kWideC columns of the tile's two planes and the other side's
+// two (or an output chunk's of the other side); then dS (or p)
+__host__ __device__ constexpr int wide_bwd_slot() {
+  return 2 * (kWideRows + kTileOthers) * kWideLd;
+}
+
+__host__ __device__ constexpr size_t wide_bwd_smem() {
+  return sizeof(float) *
+         ((size_t)2 * wide_bwd_slot() + (size_t)kTileOthers * (kWideRows + 4));
+}
+
+// One tile of the wide backward step: kWideRows rows from r0 in one of
+// three roles, query rows summing dq (role 0), key rows summing dk (1) or
+// dv (2), against the other side in chunks of kTileOthers rows.  Per chunk,
+// `pipeline` stages kWideC columns at a time of the tile's rows (q, or k)
+// and the other side's (k, or q), and, for dq and dk, of dout and v; thread
+// (ty, tx) adds them into the scores (and dout . v) of its own rows ty +
+// kWideTy a and the chunk's others tx + 16 b, FMA chains over d in
+// ascending order that run on across the column chunks; then forms p and
+// dS as the tiled backward does, dS (or, for dv, p) into shared memory;
+// then takes each of the output pass `op`'s chunks of kWideC columns of
+// the other side (k, q or dout) and adds dS (or p) times it into its 4 rows
+// x 4 columns of that chunk, in registers, in ascending order of the other
+// side: 256 columns a pass.  Returns at once where the mask leaves the
+// tile no pair.  Parts of a cluster split the other side's chunks and meet
+// as the tiled backward's do.
+template <typename T>
+__device__ __forceinline__ void wide_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
+                                              const T* __restrict__ v, const T* __restrict__ dout,
+                                              const float* __restrict__ m,
+                                              const float* __restrict__ den,
+                                              const float* __restrict__ big_d,
+                                              float* __restrict__ dq, float* __restrict__ dk,
+                                              float* __restrict__ dv, float* smem, int s, int hd,
+                                              long long lag, bool vec, int role, size_t plane,
+                                              int r0, int part, int parts, int op) {
+  constexpr int kTy = kWideTy;
+  constexpr int kRows = kWideRows;  // own rows of a tile
+  constexpr int kN = kTileOthers;   // others of a chunk
+  constexpr int kLdB = kRows + 4;   // row stride of the dS (or p) buffer
+  constexpr int kSlot = wide_bwd_slot();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // a warp holds 4 consecutive ty by 8 consecutive tx
+  const int ty = (warp >> 1) * 4 + (lane >> 3), tx = (warp & 1) * 8 + (lane & 7);
+  const bool keys = role != 0;  // the tile's rows are keys
+  const bool grad = role != 2;  // the sums take dS (dq, dk), not p (dv)
+  const int rows = min(kRows, s - r0);
+  // query i sees key j when j <= lag + i: the others the tile pairs with
+  const int o_begin = keys ? (int)min((long long)s, max(0LL, r0 - lag)) : 0;
+  const int o_end = keys ? s : (int)max(0LL, min((long long)s, lag + r0 + rows));
+  if (o_begin >= o_end) return;  // a later block: the accumulators stay as they are
+  const int2 range = part_range(o_begin, o_end, part, parts);
+  const int lo = range.x, hi = range.y;
+
+  float* slots = smem;                // [2][kSlot]
+  float* w_buf = slots + 2 * kSlot;   // [kN][kLdB] dS or p, own rows in slot order
+  const float scale = 1.0f / sqrtf((float)hd);
+  const size_t stat = plane * s, base = stat * hd;
+  const T* x_src = (keys ? k : q) + base;    // own rows, scored
+  const T* y_src = (keys ? v : dout) + base;
+  const T* a_src = (keys ? q : k) + base;    // the other side, scored
+  const T* b_src = (keys ? dout : v) + base;
+  const T* o_src = role == 2 ? b_src : a_src;  // what the sums take: k, q or dout
+  float* out = role == 0 ? dq : role == 1 ? dk : dv;
+  const int n_chunks = (hi - lo + kN - 1) / kN;
+  const int n_cols = (hd + kWideC - 1) / kWideC;  // the head's column chunks
+  const int groups = min(kWidePass, n_cols - kWidePass * op);
+  const int per = n_cols + groups;
+
+  float acc[16 * kWidePass];  // the 4 x 4 sums of each output chunk (sum_at)
+#pragma unroll
+  for (int i = 0; i < 16 * kWidePass; ++i) acc[i] = 0.0f;
+  // the thread's 4 query rows' m, den (and its reciprocal) and D: its own
+  // rows ty + kTy a, loaded here, for query tiles; for key tiles the
+  // chunk's others tx + 16 b, loaded with each chunk
+  float qm[4], qden[4], qinv[4], qd[4];
+  const auto load_stats = [&](int from, int stride, int end) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = from + stride * a;
+      const bool live = i < end;
+      qm[a] = live ? m[stat + i] : 0.0f;
+      qden[a] = live ? den[stat + i] : 1.0f;
+      qd[a] = live ? big_d[stat + i] : 0.0f;
+      qinv[a] = recip(qden[a]);
+    }
+  };
+  if (!keys) load_stats(r0 + ty, kTy, s);
+
+  float sc[4][4], dp[4][4];
+  pipeline(
+      n_chunks * per,
+      [&](int t, int b) {
+        const int j = t % per, o0 = lo + t / per * kN, n = min(kN, hi - o0);
+        float* slot = slots + b * kSlot;
+        if (j >= n_cols) {
+          stage_cols(slot, kWideLd, kN, kWideC, o_src, o0, n, hd,
+                     (kWidePass * op + j - n_cols) * kWideC, vec);
+          return;
+        }
+        const int c0 = j * kWideC;
+        float* others = slot + 2 * kRows * kWideLd;
+        stage_cols(slot, kWideLd, kRows, kWideC, x_src, r0, rows, hd, c0, vec);
+        stage_cols(others, kWideLd, kN, kWideC, a_src, o0, n, hd, c0, vec);
+        if (grad) {
+          stage_cols(slot + kRows * kWideLd, kWideLd, kRows, kWideC, y_src, r0, rows, hd, c0, vec);
+          stage_cols(others + kN * kWideLd, kWideLd, kN, kWideC, b_src, o0, n, hd, c0, vec);
+        }
+      },
+      [&](int t, int b) {
+        const int j = t % per, o0 = lo + t / per * kN;
+        const float* slot = slots + b * kSlot;
+        if (j >= n_cols) {
+          // dq += dS k, dk += dS^T q or dv += p^T dout over the chunk's
+          // others, output chunk j - n_cols
+          add_chunk<kLdB>(acc, w_buf, slot, min(kN, hi - o0), j - n_cols, ty, tx);
+          return;
+        }
+        if (j == 0) {
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int bb = 0; bb < 4; ++bb) sc[a][bb] = dp[a][bb] = 0.0f;
+          if (keys) load_stats(o0 + tx, 16, hi);
+        }
+        const float* others = slot + 2 * kRows * kWideLd;
+        score_chunk(sc, slot, kWideLd, others, ty, tx);
+        if (grad) score_chunk(dp, slot + kRows * kWideLd, kWideLd, others + kN * kWideLd, ty, tx);
+        if (j < n_cols - 1) return;
+        // p, and for dq and dk dS, of the pairs the mask leaves, zeros
+        // elsewhere, into the buffer: other o's row holds own row ty + kTy
+        // a at slot 4 ty + a
+#pragma unroll
+        for (int bb = 0; bb < 4; ++bb) {
+          const int o = o0 + tx + 16 * bb;
+          float wv[4];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const int r = r0 + ty + kTy * a;
+            const long long i = keys ? o : r, jj = keys ? r : o;
+            const bool live = r < s && o < hi && jj <= lag + i;
+            // the query's stats (constant indices: the arrays stay in registers)
+            const float mi = keys ? qm[bb] : qm[a], di = keys ? qd[bb] : qd[a];
+            const float p = div_by(expf(__fmul_rn(sc[a][bb], scale) - mi),
+                                   keys ? qden[bb] : qden[a], keys ? qinv[bb] : qinv[a]);
+            wv[a] = !live ? 0.0f : grad ? __fmul_rn(__fmul_rn(p, __fsub_rn(dp[a][bb], di)), scale) : p;
+          }
+          *reinterpret_cast<float4*>(w_buf + (tx + 16 * bb) * kLdB + 4 * ty) =
+              make_float4(wv[0], wv[1], wv[2], wv[3]);
+        }
+      });
+
+  if (parts > 1 && !gather_parts(acc, smem, part, parts)) return;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = r0 + ty + kTy * a;
+    if (r >= s) continue;
+#pragma unroll
+    for (int g = 0; g < kWidePass; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = (kWidePass * op + g) * kWideC + 4 * tx + e;
+        if (c >= hd) continue;
+        const size_t at = (stat + r) * hd + c;
+        out[at] = __fadd_rn(out[at], acc[sum_at(a, g, e)]);
+      }
+  }
+}
+
+// The backward step for heads over kTileHeadDim.  Block b of the grid is
+// part b % parts of unit u = b / parts, which takes output pass u % ops
+// (256 columns) of role u / ops % 3 (dq, dk, dv) of plane u / ops / 3 %
+// planes and tile t = u / ops / 3 / planes; where `paired` (a diagonal
+// block) also tile tiles - 1 - t, so that its work under the causal mask
+// is the same for every t.
+template <typename T>
+__global__ void __launch_bounds__(16 * kWideTy, 1)
+ring_step_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ m, const float* __restrict__ den,
+                          const float* __restrict__ big_d, float* __restrict__ dq,
+                          float* __restrict__ dk, float* __restrict__ dv, int s, int hd,
+                          int q_block, int k_block, bool vec, int tiles, unsigned int planes,
+                          bool paired, int parts, int ops) {
+  extern __shared__ __align__(16) float tile_smem[];
+  const int part = (int)(blockIdx.x % parts);
+  const unsigned int unit = blockIdx.x / parts;
+  const int op = (int)(unit % ops);
+  const int role = (int)(unit / ops % 3);
+  const unsigned int rank = unit / ops / 3;
+  const size_t plane = rank % planes;
+  const int t = (int)(rank / planes);
+  const long long lag = ((long long)q_block - k_block) * s;
+  wide_bwd_tile<T>(q, k, v, dout, m, den, big_d, dq, dk, dv, tile_smem, s, hd, lag, vec, role,
+                   plane, t * kWideRows, part, parts, op);
+  if (paired && tiles - 1 - t != t) {
+    __syncthreads();
+    wide_bwd_tile<T>(q, k, v, dout, m, den, big_d, dq, dk, dv, tile_smem, s, hd, lag, vec, role,
+                     plane, (tiles - 1 - t) * kWideRows, part, parts, op);
+  }
+}
+
 // ---- launches -----------------------------------------------------------
 
 // the grid's row blocks a plane, or 0 where the grid would be too large
@@ -1159,8 +1762,7 @@ int row_blocks_of(int b, int h, int s, int blocks_per_row_block) {
 }
 
 bool valid(int b, int h, int s, int hd, int q_block, int k_block) {
-  return b >= 1 && h >= 1 && s >= 1 && hd >= 1 && hd <= kMaxHeadDim && q_block >= 0 &&
-         k_block >= 0;
+  return b >= 1 && h >= 1 && s >= 1 && hd >= 1 && q_block >= 0 && k_block >= 0;
 }
 
 struct FwdArgs {
@@ -1216,8 +1818,26 @@ constexpr int kTileMinSeq = 64;
 constexpr long long kFullGrid = 256;
 constexpr int kSplitChunks = 4;
 
+// The number of the wide kernels' output passes of 256 columns a head of
+// hd takes
+int wide_passes(int hd) { return (hd + kWidePass * kWideC - 1) / (kWidePass * kWideC); }
+
+// The wide backward's plan, for heads over kTileHeadDim, set by timing the
+// plans at heads of 256 on the card: the row kernel under kTileMinSeq rows up
+// to heads of kWideResident, where its many small blocks finish sooner;
+// else 64-row tiles of three roles, in pairs on the diagonal, and
+// elsewhere two parts of a cluster sharing each tile's chunks from
+// kSplitChunks chunks, at every grid size the card was timed at (a wide
+// block holds an SM's registers alone, so that even a grid of some 800
+// blocks ends in an uneven last wave).
+TilePlan wide_bwd_plan(int s, int hd, bool diagonal) {
+  if (s < kTileMinSeq && hd <= kWideResident) return {0, 1, false};
+  return {kWideRows, !diagonal && s >= kSplitChunks * kTileOthers ? 2 : 1, diagonal};
+}
+
 TilePlan bwd_plan(long long planes, int s, int hd, bool diagonal) {
-  if (hd > kTileHeadDim || s < kTileMinSeq) return {0, 1, false};
+  if (hd > kTileHeadDim) return wide_bwd_plan(s, hd, diagonal);
+  if (s < kTileMinSeq) return {0, 1, false};
   const int rows = tile_blocks(planes, s, 64, diagonal, 2) >= kFullGrid ? 64 : 32;
   const bool paired = diagonal && rows == 64;
   const long long blocks = tile_blocks(planes, s, rows, paired, 2);
@@ -1287,11 +1907,24 @@ bool short_block(int b, int h, int s, int hd) {
   return s <= kMaxSeq && hd <= kShortHeadDim && b <= 65535 && h <= 65535;
 }
 
+// The wide forward's plan, for heads over kTileHeadDim, set by timing the
+// plans at heads of 256 on the card: ring_step_long_kernel under kTileMinSeq
+// keys up to heads of kWideResident, where its many small blocks finish
+// sooner; else 64-row tiles, two parts of a cluster sharing each tile's
+// chunks from kSplitChunks chunks where the grid has fewer blocks than
+// kWideFullGrid
+TilePlan wide_fwd_plan(long long planes, int s, int hd) {
+  if (s < kTileMinSeq && hd <= kWideResident) return {0, 1, false};
+  const bool split = s >= kSplitChunks * kTileOthers &&
+                     tile_blocks(planes, s, kWideRows, false, 1) < kWideFullGrid;
+  return {kWideRows, split ? 2 : 1, false};
+}
+
 TilePlan fwd_plan(int b, int h, int s, int hd) {
-  if ((short_block(b, h, s, hd) && s < kFwdTileMinSeq) || hd > kTileHeadDim ||
-      s < kTileMinSeq)
-    return {0, 1, false};
   const long long planes = (long long)b * h;
+  if (hd > kTileHeadDim) return wide_fwd_plan(planes, s, hd);
+  if ((short_block(b, h, s, hd) && s < kFwdTileMinSeq) || s < kTileMinSeq)
+    return {0, 1, false};
   const int rows = tile_blocks(planes, s, 64, false, 1) >= kFullGrid ? 64 : 32;
   const bool split = s >= kSplitChunks * kTileOthers &&
                      tile_blocks(planes, s, rows, false, 1) < 2 * kFullGrid;
@@ -1311,11 +1944,25 @@ int launch_fwd_tiled(const FwdArgs& a, long long planes, const TilePlan& plan) {
       a.vec, (int)tiles, (unsigned int)planes, stages, plan.parts);
 }
 
+template <typename T, bool kRes>
+int launch_fwd_wide(const FwdArgs& a, long long planes, const TilePlan& plan) {
+  const long long tiles = (a.s + kWideRows - 1) / kWideRows;
+  return launch_clusters(
+      ring_step_wide_kernel<T, kRes>, plan.parts * tile_blocks(planes, a.s, kWideRows, false, 1),
+      16 * kWideTy, sizeof(float) * wide_fwd_layout(kRes, a.hd).total, plan.parts, a.stream,
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<float*>(a.m), static_cast<float*>(a.num), static_cast<float*>(a.den), a.s, a.hd,
+      a.q_block, a.k_block, a.vec, (int)tiles, (unsigned int)planes, plan.parts);
+}
+
 // One launch of the plan's kernel; rows 0: ring_step_kernel where the
 // block is short, else ring_step_long_kernel
 template <typename T>
 int launch_fwd(const FwdArgs& a, int b, int h, const TilePlan& plan) {
   const long long planes = (long long)b * h;
+  if (plan.rows && a.hd > kTileHeadDim)
+    return a.hd <= kWideResident ? launch_fwd_wide<T, true>(a, planes, plan)
+                                 : launch_fwd_wide<T, false>(a, planes, plan);
   if (plan.rows)
     return by_tile(plan, a.hd, [&](auto ty, auto nc) {
       return launch_fwd_tiled<T, decltype(ty)::value, decltype(nc)::value>(a, planes, plan);
@@ -1380,19 +2027,30 @@ int launch_bwd_tiled(const BwdArgs& a, long long planes, const TilePlan& plan) {
 }
 
 template <typename T>
-int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* m,
-               const void* den, const void* big_d, void* dq, void* dk, void* dv, int b, int h,
-               int s, int hd, int q_block, int k_block, void* stream) {
-  if (!valid(b, h, s, hd, q_block, k_block)) return cudaErrorInvalidValue;
-  const bool vec = (hd * (int)sizeof(T)) % 16 == 0 && of::aligned16(q, k, v, dout);
-  const BwdArgs args{q,  k,  v, dout, m,       den,     big_d, dq,
-                     dk, dv, s, hd,   q_block, k_block, vec,   static_cast<cudaStream_t>(stream)};
+int launch_bwd_wide(const BwdArgs& a, long long planes, const TilePlan& plan) {
+  const long long tiles = (a.s + kWideRows - 1) / kWideRows;
+  const int passes = wide_passes(a.hd);
+  return launch_clusters(
+      ring_step_bwd_wide_kernel<T>,
+      plan.parts * passes * tile_blocks(planes, a.s, kWideRows, plan.paired, 3), 16 * kWideTy,
+      wide_bwd_smem(), plan.parts, a.stream, static_cast<const T*>(a.q),
+      static_cast<const T*>(a.k), static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.m), static_cast<const float*>(a.den),
+      static_cast<const float*>(a.big_d), static_cast<float*>(a.dq), static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.s, a.hd, a.q_block, a.k_block, a.vec, (int)tiles,
+      (unsigned int)planes, plan.paired, plan.parts, passes);
+}
+
+// One launch of the plan's kernel; rows 0: ring_step_bwd_kernel
+template <typename T>
+int launch_bwd_plan(const BwdArgs& a, int b, int h, const TilePlan& plan) {
   const long long planes = (long long)b * h;
-  const TilePlan plan = bwd_plan(planes, s, hd, q_block == k_block);
+  if (plan.rows && a.hd > kTileHeadDim) return launch_bwd_wide<T>(a, planes, plan);
   if (plan.rows)
-    return by_tile(plan, hd, [&](auto ty, auto nc) {
-      return launch_bwd_tiled<T, decltype(ty)::value, decltype(nc)::value>(args, planes, plan);
+    return by_tile(plan, a.hd, [&](auto ty, auto nc) {
+      return launch_bwd_tiled<T, decltype(ty)::value, decltype(nc)::value>(a, planes, plan);
     });
+  const int s = a.s, hd = a.hd;
   const int row_blocks = row_blocks_of(b, h, s, 2);
   if (row_blocks == 0) return cudaErrorInvalidValue;
   const cudaError_t err = of::set_attribute_once(
@@ -1404,13 +2062,24 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
   const size_t smem = sizeof(float) * ((size_t)2 * chunk * (hd + 1) + (size_t)4 * kWarps * hd +
                                        (size_t)(2 * kWarps + 3) * chunk);
   ring_step_bwd_kernel<T><<<2 * row_blocks * (unsigned int)planes, 32 * kWarps, smem,
-                            args.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(m), static_cast<const float*>(den),
-      static_cast<const float*>(big_d), static_cast<float*>(dq), static_cast<float*>(dk),
-      static_cast<float*>(dv), s, hd, q_block, k_block, vec, chunk, row_blocks,
-      (unsigned int)planes);
+                            a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.m),
+      static_cast<const float*>(a.den), static_cast<const float*>(a.big_d),
+      static_cast<float*>(a.dq), static_cast<float*>(a.dk), static_cast<float*>(a.dv), s, hd,
+      a.q_block, a.k_block, a.vec, chunk, row_blocks, (unsigned int)planes);
   return cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* m,
+               const void* den, const void* big_d, void* dq, void* dk, void* dv, int b, int h,
+               int s, int hd, int q_block, int k_block, void* stream) {
+  if (!valid(b, h, s, hd, q_block, k_block)) return cudaErrorInvalidValue;
+  const bool vec = (hd * (int)sizeof(T)) % 16 == 0 && of::aligned16(q, k, v, dout);
+  const BwdArgs args{q,  k,  v, dout, m,       den,     big_d, dq,
+                     dk, dv, s, hd,   q_block, k_block, vec,   static_cast<cudaStream_t>(stream)};
+  return launch_bwd_plan<T>(args, b, h, bwd_plan((long long)b * h, s, hd, q_block == k_block));
 }
 
 }  // namespace

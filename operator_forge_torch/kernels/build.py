@@ -7,8 +7,9 @@ where ``<hash>`` covers the source, every header it includes with quotes
 and the flags: a changed source or header builds anew, an unchanged one
 loads the library already there.  The build runs at
 first use, under a file lock, so processes that start together build once.
-Every C entry returns ``cudaGetLastError()``; ``check`` raises on a
-non-zero status.
+``ptxas``'s report of each kernel's registers and spills is kept beside the
+library (``resources`` reads it).  Every C entry returns
+``cudaGetLastError()``; ``check`` raises on a non-zero status.
 """
 
 from __future__ import annotations
@@ -76,18 +77,19 @@ def library_path(name: str, csrc: Path = CSRC) -> Path:
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same inputs and
-    flags exists; return the library's path."""
+    flags exists with its report; return the library's path."""
     src = CSRC / f"{name}.cu"
     out = library_path(name)
-    if out.exists():
+    # a library built without its report (by an older build) builds anew
+    if out.exists() and report(out).exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / f"{name}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if not out.exists():
+        if not (out.exists() and report(out).exists()):
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(src)],
                 capture_output=True, text=True,
             )
             if proc.returncode != 0:
@@ -96,8 +98,42 @@ def build(name: str) -> Path:
                     f"nvcc failed on {src.name} (rc {proc.returncode}):\n"
                     f"{proc.stdout}{proc.stderr}"
                 )
+            report(out).write_text(proc.stderr)
             os.replace(tmp, out)
     return out
+
+
+def report(library: Path) -> Path:
+    """Where ``ptxas``'s report of ``library``'s build lies."""
+    return library.with_name(library.name + ".ptxas.txt")
+
+
+def _kernel_name(symbol: str) -> str:
+    """``ring_step_wide_kernel<float, true>`` for a kernel's mangled symbol,
+    where ``c++filt`` is on the path; else the symbol."""
+    filt = shutil.which("c++filt")
+    if not filt:
+        return symbol
+    name = subprocess.run([filt], input=symbol, capture_output=True, text=True).stdout.strip()
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name[:name.index("(")] if "(" in name else name
+
+
+def resources(name: str, csrc: Path = CSRC) -> dict:
+    """Each kernel of ``<csrc>/<name>.cu``'s built library: its registers a
+    thread and the bytes it spills to local memory, stores and loads, from
+    ``ptxas``'s report."""
+    found, kernel = {}, None
+    for line in report(library_path(name, csrc)).read_text().splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            kernel = _kernel_name(entry.group(1))
+            found[kernel] = {}
+        elif kernel and (spill := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            found[kernel].update(spill_stores=int(spill.group(1)), spill_loads=int(spill.group(2)))
+        elif kernel and (used := re.search(r"Used (\d+) registers", line)):
+            found[kernel]["registers"] = int(used.group(1))
+    return found
 
 
 def build_all() -> list[Path]:

@@ -24,10 +24,6 @@ import torch
 
 from . import build
 
-# the widest head whose rows a block of either kernel holds in shared
-# memory (``kMaxHeadDim`` in the source); the sequence has no limit
-MAX_HEAD_DIM = 3072
-
 launches = 0
 bwd_launches = 0
 
@@ -101,8 +97,7 @@ def _check(q, k_blk, v_blk, m, num, den) -> tuple[int, int, int, int]:
 
 def _plain(what: str, tensors, q_block: int, k_block: int) -> bool:
     """True where every tensor lies on the CPU (the plain version), False
-    where the kernel takes them; raise otherwise, and where the kernel
-    cannot take the head's width."""
+    where the kernel takes them; raise otherwise."""
     if q_block < 0 or k_block < 0:
         raise ValueError(f"ring positions are >= 0, got {q_block}, {k_block}")
     if all(t.device.type == "cpu" for t in tensors):
@@ -111,11 +106,6 @@ def _plain(what: str, tensors, q_block: int, k_block: int) -> bool:
     if (q.device.type != "cuda" or any(t.device != q.device for t in tensors)
             or not all(t.is_contiguous() for t in tensors)):
         raise ValueError(f"{what}'s kernel takes contiguous tensors on one CUDA device")
-    if q.shape[-1] > MAX_HEAD_DIM:
-        raise ValueError(
-            f"{what}'s kernel takes head_dim <= {MAX_HEAD_DIM}, the widest whose rows fit "
-            f"in a block's shared memory; got {q.shape[-1]}"
-        )
     return False
 
 
@@ -147,12 +137,13 @@ def ring_step(q, k_blk, v_blk, m, num, den, q_block: int, k_block: int) -> tuple
     after each step, so updating it in place computes the same function
     without a copy (autograd goes through ``demo.RingAttention``, whose
     forward records no graph).  CPU tensors take the plain version; CUDA
-    tensors one launch of one of three kernels, chosen by shape: a warp a
+    tensors one launch of one of four kernels, chosen by shape: a warp a
     query row under 256 keys, register tiles from there (and from 64 keys
-    past 65535 batches or heads) up to heads of 128, a second warp-a-row
-    kernel for the rest.  A later block (``k_block > q_block``), whose keys
-    are all masked, is one launch too: its blocks exit at once and the
-    carry keeps its bits."""
+    past 65535 batches or heads) up to heads of 128, register tiles that
+    take the head in column chunks for any wider head from 64 keys (and
+    under 64 past heads of 256), a second warp-a-row kernel for the rest.
+    A later block (``k_block > q_block``), whose keys are all masked, is one
+    launch too: its blocks exit at once and the carry keeps its bits."""
     global launches
     b, h, s, d = _check(q, k_blk, v_blk, m, num, den)
     tensors = (q, k_blk, v_blk, m, num, den)
@@ -171,9 +162,11 @@ def ring_step_bwd(q, k_blk, v_blk, dout, m, den, big_d, q_block: int, k_block: i
     accumulators ``dq, dk_blk, dv_blk [b, h, s, d]`` in place and returns
     them.  ``q, k_blk, v_blk, dout`` are f32 or bf16 ``[b, h, s, d]`` of one
     type; ``m, den, big_d`` f32 ``[b, h, s, 1]`` (see ``ring_step_bwd_ref``).
-    CPU tensors take the plain version; CUDA tensors one launch of the
-    kernel, whose blocks of a later block exit at once, leaving the
-    accumulators' bits as they were."""
+    CPU tensors take the plain version; CUDA tensors one launch of one of
+    three kernels, chosen by shape (a warp a row under 64 keys up to heads
+    of 256, register tiles up to heads of 128, register tiles that take the
+    head in column chunks past it), whose blocks of a later block exit at
+    once, leaving the accumulators' bits as they were."""
     global bwd_launches
     b, h, s, d = _check(q, k_blk, v_blk, m, dq, den)
     for name, t, dtype, shape in (

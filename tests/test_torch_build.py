@@ -53,3 +53,25 @@ def test_every_source_of_the_port_names_its_headers(name):
     if '#include "common.cuh"' in (build.CSRC / f"{name}.cu").read_text():
         assert "common.cuh" in found
     assert build.library_path(name).parent == build.BUILD_DIR
+
+
+def test_resources_reads_each_kernels_registers_and_spills(csrc, monkeypatch):
+    """``ptxas``'s report kept beside a library: each entry function's
+    registers and spill bytes, by its symbol where no ``c++filt`` is found."""
+    monkeypatch.setattr(build, "BUILD_DIR", csrc / "_build")
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    report = build.report(build.library_path("k", csrc))
+    report.parent.mkdir()
+    report.write_text(
+        "ptxas info    : Compiling entry function '_Z1aPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1aPf\n"
+        "    8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 80 registers, used 1 barriers, 8 bytes cumulative stack size\n"
+        "ptxas info    : Compiling entry function '_Z1bPf' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 219 registers, used 1 barriers\n"
+    )
+    assert build.resources("k", csrc) == {
+        "_Z1aPf": {"registers": 80, "spill_stores": 8, "spill_loads": 12},
+        "_Z1bPf": {"registers": 219, "spill_stores": 0, "spill_loads": 0},
+    }

@@ -394,7 +394,18 @@ def ring_inputs(shape, case, device, dtype=torch.float32, seed=30):
      # than 65535 batches; and a head past it (the long kernel, kept)
      ((1, 1, 4096, 32), torch.float32), ((2, 2, 1100, 33), torch.float32),
      ((1, 2, 1088, 128), torch.float32), ((1, 2, 1030, 64), torch.bfloat16),
-     ((1, 2, 1100, 129), torch.float32), ((65536, 1, 64, 4), torch.float32)],
+     ((1, 2, 1100, 129), torch.float32), ((65536, 1, 64, 4), torch.float32),
+     # the wide kernel's edges: one under (the long kernel), at and one over
+     # its first block of 64 keys; q streamed past heads of 256 and a second
+     # output pass past 256 columns; bf16 heads of 200 (no 16-byte loads
+     # in f32 terms, ragged tiles and chunks); the key walk split between
+     # a cluster's two blocks from 256 keys (also ragged); heads of 3073 and
+     # 4096, past the former cap, under and over a key chunk
+     ((1, 2, 63, 256), torch.float32), ((1, 2, 64, 256), torch.float32),
+     ((1, 2, 65, 257), torch.float32), ((2, 2, 130, 384), torch.float32),
+     ((2, 2, 100, 200), torch.bfloat16), ((1, 2, 256, 256), torch.float32),
+     ((1, 1, 300, 160), torch.float32), ((1, 1, 33, 3073), torch.float32),
+     ((1, 1, 70, 4096), torch.bfloat16)],
 )
 def test_ring_step_kernel_matches_plain(cuda, shape, dtype, case):
     """The carry within rtol and atol 2e-5 of the plain version (f32 sums
@@ -459,6 +470,17 @@ RING_BWD_SHAPES = [
     ((2, 2, 100, 33), torch.bfloat16), ((1, 2, 128, 128), torch.float32),
     ((8, 8, 130, 100), torch.float32), ((16, 8, 128, 128), torch.float32),
     ((1, 2, 128, 129), torch.float32),
+    # the wide kernel's edges: one under (the row kernel), at and one over
+    # its first block of 64 rows; a second output pass past 256 columns;
+    # bf16 heads of 200, ragged tiles and chunks; a tile's chunks split
+    # between a cluster's two blocks from 256 rows (also ragged); heads of
+    # 3073 and 4096, past the former cap, under a chunk (the wide kernel
+    # under 64 rows past heads of 256) and over one
+    ((1, 2, 63, 256), torch.float32), ((1, 2, 64, 256), torch.float32),
+    ((1, 2, 65, 257), torch.float32), ((2, 2, 130, 384), torch.float32),
+    ((2, 2, 100, 200), torch.bfloat16), ((1, 2, 256, 256), torch.float32),
+    ((1, 1, 300, 160), torch.float32), ((1, 1, 33, 3073), torch.float32),
+    ((1, 1, 70, 4096), torch.bfloat16),
 ]
 
 
@@ -494,7 +516,7 @@ def nccl_one(cuda, tmp_path):
     dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("shape", [(8, 4, 64, 32), (1, 4, 1024, 32), (2, 2, 1100, 16)])
+@pytest.mark.parametrize("shape", [(8, 4, 64, 32), (1, 4, 1024, 32), (2, 2, 1100, 16), (1, 2, 512, 256)])
 def test_ring_attention_gradient_matches_dense(nccl_one, shape):
     """``backward()`` through ``ring_attention`` on the group of one: one
     backward step, its gradient within rtol 2e-5 and atol 2e-5 of each
@@ -625,11 +647,15 @@ def test_cross_entropy_replays_from_a_cuda_graph(cuda, dtype):
     assert torch.equal(ce.cross_entropy_fwd(logits, targets)[0], eager)
 
 
-@pytest.mark.parametrize("case", ["earlier", "later"])
-def test_ring_step_is_one_kernel(cuda, case):
+@pytest.mark.parametrize(
+    "case, shape",
+    [pytest.param(case, shape, id=case if shape == (8, 4, 16, 32) else f"{case}-{'x'.join(map(str, shape))}")
+     for shape in ((8, 4, 16, 32), (1, 4, 1024, 256)) for case in ("earlier", "later")],
+)
+def test_ring_step_is_one_kernel(cuda, case, shape):
     """One call of ``ring_step`` runs one CUDA kernel, also for a later
-    block, whose blocks exit at once."""
-    (q, k, v, *carry), my, origin = ring_inputs((8, 4, 16, 32), case, cuda)
+    block, whose blocks exit at once, and at heads of 256."""
+    (q, k, v, *carry), my, origin = ring_inputs(shape, case, cuda)
     kernels = _cuda_kernels(lambda: ra.ring_step(q, k, v, *carry, my, origin))
     assert len(kernels) == 1, kernels
 
@@ -644,21 +670,26 @@ def test_ring_step_is_one_kernel(cuda, case):
     ((1, 2, 1030, 64), "earlier", "ring_step_tiled_kernel<float, 8, 4>"),
     ((1, 2, 1088, 128), "diagonal", "ring_step_tiled_kernel<float, 8, 8>"),
     ((65536, 1, 64, 4), "earlier", "ring_step_tiled_kernel<float, 16, 2>"),
-    ((1, 2, 1100, 129), "earlier", "ring_step_long_kernel<float>"),
+    ((1, 2, 1100, 129), "earlier", "ring_step_wide_kernel<float, true>"),
+    ((1, 4, 1024, 256), "earlier", "ring_step_wide_kernel<float, true>"),
+    ((1, 2, 63, 256), "earlier", "ring_step_long_kernel<float>"),
+    ((1, 1, 33, 257), "diagonal", "ring_step_wide_kernel<float, false>"),
     ((65536, 1, 2, 4), "earlier", "ring_step_long_kernel<float>"),
 ])
 def test_ring_step_path_by_shape(cuda, shape, case, kernel):
     """Which kernel a shape takes: the row kernel under 256 keys; tiles
     from there, 32 rows where 64-row tiles give fewer than 256 blocks, 2,
     4 or 8 columns a thread, and from 64 keys for more than 65535 batches
-    or heads; the long kernel for heads over 128 and for shorter blocks of
-    more than 65535 batches or heads."""
+    or heads; the wide kernel for heads over 128 from 64 keys, q staged up
+    to heads of 256 and streamed past them (at any block); the long kernel
+    under 64 keys for heads of 129 to 256 and for more than 65535 batches
+    or heads."""
     (q, k, v, *carry), my, origin = ring_inputs(shape, case, cuda)
     kernels = _cuda_kernels(lambda: ra.ring_step(q, k, v, *carry, my, origin))
     assert len(kernels) == 1 and kernel in kernels[0], kernels
 
 
-@pytest.mark.parametrize("shape", [(8, 4, 16, 32), (1, 4, 4096, 32)])
+@pytest.mark.parametrize("shape", [(8, 4, 16, 32), (1, 4, 4096, 32), (1, 4, 1024, 256)])
 def test_ring_step_replays_from_a_cuda_graph(cuda, shape):
     """A CUDA graph of one step, replayed twice on the same carry, gives
     the eager step's bits each time: the launch makes no host sync and
@@ -682,11 +713,38 @@ def test_ring_step_replays_from_a_cuda_graph(cuda, shape):
         assert all(torch.equal(a, b) for a, b in zip(live, eager))
 
 
-@pytest.mark.parametrize("case", ["earlier", "later"])
-def test_ring_step_bwd_is_one_kernel(cuda, case):
-    """One call of ``ring_step_bwd`` runs one CUDA kernel (both roles in
-    one grid), also for a later block."""
-    inputs, my, origin, acc = ring_bwd_inputs((8, 4, 16, 32), case, cuda)
+@pytest.mark.parametrize("shape", [(8, 4, 16, 32), (1, 4, 1024, 256)])
+def test_ring_step_bwd_replays_from_a_cuda_graph(cuda, shape):
+    """A CUDA graph of one backward step, replayed twice on the same
+    accumulators, gives the eager step's bits each time."""
+    inputs, my, origin, acc = ring_bwd_inputs(shape, "earlier", cuda)
+    eager = ra.ring_step_bwd(*inputs, my, origin, *(t.clone() for t in acc))
+    live = [t.clone() for t in acc]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ra.ring_step_bwd(*inputs, my, origin, *live)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ra.ring_step_bwd(*inputs, my, origin, *live)
+    for _ in range(2):
+        for t, a in zip(live, acc):
+            t.copy_(a)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(live, eager))
+
+
+@pytest.mark.parametrize(
+    "case, shape",
+    [pytest.param(case, shape, id=case if shape == (8, 4, 16, 32) else f"{case}-{'x'.join(map(str, shape))}")
+     for shape in ((8, 4, 16, 32), (1, 4, 1024, 256)) for case in ("earlier", "later")],
+)
+def test_ring_step_bwd_is_one_kernel(cuda, case, shape):
+    """One call of ``ring_step_bwd`` runs one CUDA kernel (every role in
+    one grid), also for a later block, and at heads of 256."""
+    inputs, my, origin, acc = ring_bwd_inputs(shape, case, cuda)
     kernels = _cuda_kernels(lambda: ra.ring_step_bwd(*inputs, my, origin, *acc))
     assert len(kernels) == 1, kernels
 
@@ -700,12 +758,17 @@ def test_ring_step_bwd_is_one_kernel(cuda, case):
     ((1, 4, 4096, 32), "diagonal", "ring_step_bwd_tiled_kernel<float, 16, 2>"),
     ((2, 2, 100, 33), "earlier", "ring_step_bwd_tiled_kernel<float, 8, 4>"),
     ((16, 8, 128, 128), "diagonal", "ring_step_bwd_tiled_kernel<float, 16, 8>"),
-    ((1, 2, 128, 129), "earlier", "ring_step_bwd_kernel<float>"),
+    ((1, 2, 128, 129), "earlier", "ring_step_bwd_wide_kernel<float>"),
+    ((1, 4, 1024, 256), "diagonal", "ring_step_bwd_wide_kernel<float>"),
+    ((1, 2, 63, 256), "diagonal", "ring_step_bwd_kernel<float>"),
+    ((1, 1, 33, 3073), "earlier", "ring_step_bwd_wide_kernel<float>"),
 ])
 def test_ring_step_bwd_path_by_shape(cuda, shape, case, kernel):
-    """Which kernel a shape takes: the row kernel below 64 keys and past
-    heads of 128; tiles of 32 rows; 64 rows where their grid (pairs of
-    tiles on the diagonal) has 256 blocks; 2, 4 or 8 columns a thread."""
+    """Which kernel a shape takes: the row kernel below 64 keys up to heads
+    of 256; tiles of 32 rows; 64 rows where their grid (pairs of tiles on
+    the diagonal) has 256 blocks; 2, 4 or 8 columns a thread; the wide
+    kernel for heads over 128 from 64 keys, and at any block past heads of
+    256."""
     inputs, my, origin, acc = ring_bwd_inputs(shape, case, cuda)
     kernels = _cuda_kernels(lambda: ra.ring_step_bwd(*inputs, my, origin, *acc))
     assert len(kernels) == 1 and kernel in kernels[0], kernels

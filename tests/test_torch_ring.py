@@ -10,9 +10,11 @@ against JAX's ring within rtol and atol 2e-5, the reference's own bar
 (``test_tpu_demo.py:138-181``; measured 4.8e-7), and so is its gradient
 against ``jax.vjp`` of the reference's ring in f32; in bf16 each gradient
 within 2 bf16 ulps of its max |g|.  One block step of the plain version
-against the reference's arithmetic within rtol 1e-5 and atol 1e-6, and the
-backward step against ``jax.vjp`` of it within rtol 1e-5 and atol 2e-6, f32
-sums taken in another order.
+against the reference's arithmetic within rtol 1e-5 and atol 1e-6 at heads
+of 16 (the atol growing as the square root of the head's width past it,
+as the rounding of a sum over the head does), and the backward step
+against ``jax.vjp`` of it within rtol 1e-5 and atol 2e-6, f32 sums taken in
+another order.
 """
 
 import math
@@ -83,14 +85,29 @@ def _step_inputs(case, shape=(2, 3, 17, 16), seed=0):
     return (q, k, v, *seen), my, origin
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_ring_step_ref_matches_jax(case):
-    arrays, my, origin = _step_inputs(case)
+# the step's shapes: a ragged block, and heads the card's kernels take in
+# column chunks: Gemma 7B's 256, and 3073 and 4096, past the former cap
+STEP_SHAPES = [(2, 3, 17, 16), (1, 1, 33, 256), (1, 1, 9, 3073), (1, 1, 9, 4096)]
+
+
+@pytest.mark.parametrize(
+    "case, shape",
+    [pytest.param(case, shape, id=case if shape == STEP_SHAPES[0] else f"{case}-{'x'.join(map(str, shape))}")
+     for shape in STEP_SHAPES for case in sorted(CASES)],
+)
+def test_ring_step_ref_matches_jax(case, shape):
+    """Within rtol 1e-5 and atol 1e-6 at heads of 16, the atol times the
+    square root of the head's width over 16 past it: each score is an f32
+    sum over the head, taken in another order, whose rounding grows as the
+    square root of its terms' count (at 256, 3073 and 4096 some 2.6e-6,
+    4.0e-6 and 3.4e-6 past the rtol, in num where it cancels)."""
+    arrays, my, origin = _step_inputs(case, shape)
     want = [np.asarray(t) for t in _jax_step(*arrays, my, origin)]
     got = ra.ring_step_ref(*(torch.tensor(a) for a in arrays), my, origin)
+    atol = 1e-6 * math.sqrt(max(1.0, shape[-1] / 16))
     for name, g, w in zip(("m", "num", "den"), got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
-        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-6, err_msg=name)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=atol, err_msg=name)
     if case == "later":
         # every key masked: the carry comes back as it went in
         for g, before in zip(got, arrays[3:]):
@@ -161,9 +178,11 @@ def _block_grads(case, shape=(2, 3, 17, 16), seed=0):
 # the backward step's shapes: a ragged block, and blocks at and past the
 # card kernel's edges (its first tiled block, and a 64-row chunk, of 64
 # rows; two chunks and two rows past them; a tile whose 5 chunks two blocks
-# share) and a head on its row kernel (wider than the tiled kernel's 128)
+# share), a head on its row kernel (wider than the tiled kernel's 128), and
+# heads its wide kernel takes in column chunks (256, and 3073 and 4096,
+# past the former cap)
 BWD_SHAPES = [(2, 3, 17, 16), (1, 2, 64, 32), (1, 2, 65, 32), (1, 1, 130, 32), (1, 1, 257, 32),
-              (1, 1, 33, 160)]
+              (1, 1, 33, 160), (1, 1, 33, 256), (1, 1, 9, 3073), (1, 1, 9, 4096)]
 
 
 @pytest.mark.parametrize(
@@ -346,6 +365,7 @@ def _close(got, want, dtype) -> None:
 RING_SHAPE = (2, 2, 32, 16)   # the 4-rank ring: blocks of 8
 ALONE_SHAPE = (1, 2, 8, 8)    # a ring of one rank
 LONG_SHAPE = (1, 2, 1100, 8)  # a ring of one rank past 1024 keys
+WIDE_SHAPE = (1, 2, 16, 3073)  # a ring of one rank past the card's former cap on heads
 
 
 # the types the rings run in: f32 and bf16, which the kernels take, and
@@ -359,7 +379,7 @@ def ring_run():
     """Ring attention and its gradient in 4 gloo ranks, spawned once: the
     4-rank ring at ``RING_SHAPE`` in each of ``RING_TYPES`` and, on each
     rank, a 1-rank ring at ``ALONE_SHAPE`` (q = k = v) in each of them and
-    at ``LONG_SHAPE`` (f32)."""
+    at ``LONG_SHAPE`` and ``WIDE_SHAPE`` (f32)."""
     rng = np.random.default_rng(7)
     q, k, v, dout = (rng.standard_normal(RING_SHAPE, dtype=np.float32) for _ in range(4))
     small, d_small = (rng.standard_normal(ALONE_SHAPE, dtype=np.float32) for _ in range(2))
@@ -367,6 +387,7 @@ def ring_run():
     rings = {name: (q, k, v, dout, dtype) for name, dtype in RING_TYPES.items()}
     alone = {name: (small, small, small, d_small, dtype) for name, dtype in RING_TYPES.items()}
     alone["long"] = (*long, "float32")
+    alone["wide"] = (*(rng.standard_normal(WIDE_SHAPE, dtype=np.float32) for _ in range(4)), "float32")
     out = ranks.run_ranks(4, torch_ranks.ring, (list(rings.values()), list(alone.values())), "cpu",
                           RANKS_TIMEOUT)
     joined = {name: (*(np.concatenate([o["rings"][i][t] for o in out], axis=2) for t in range(4)),
@@ -401,11 +422,11 @@ def test_ring_attention_gradient_matches_jax_on_4_ranks(ring_run, dtype):
     _close(ring_run["joined"][dtype], _jax_ring(q, k, v, dout, types, 4), types)
 
 
-@pytest.mark.parametrize("case", [*RING_TYPES, "long"])
+@pytest.mark.parametrize("case", [*RING_TYPES, "long", "wide"])
 def test_single_rank_ring_gradient_matches_jax(ring_run, case):
-    """The ring of one rank, at ``ALONE_SHAPE`` in each of ``RING_TYPES``
-    and at a block of 1100 keys, and its gradient, against the reference
-    on one device, on every rank."""
+    """The ring of one rank, at ``ALONE_SHAPE`` in each of ``RING_TYPES``,
+    at a block of 1100 keys and at heads of 3073, and its gradient, against
+    the reference on one device, on every rank."""
     *arrays, dtype = ring_run["alone"][case]
     want = _jax_ring(*arrays, dtype, 1)
     for alone in ring_run["by_rank"]:
