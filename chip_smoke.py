@@ -73,12 +73,23 @@ Phases, each of which exits non-zero on a failed check:
       ``RING_WIDE_SHAPES`` (2), with n backward steps a rank for each
       backward;
   (h) the sharded train step on the (1, 1) mesh at ``DemoConfig()``, 3
-      steps with per-step launch counts, the first against ``train_step``
-      on the same parameters and tokens; ``run_dryrun(1)`` in this process
-      and then ``entry.dryrun_multichip(1)``, which spawns its own rank;
+      eager steps (``step.fn``) with per-step launch counts, the first
+      against ``train_step`` on the same parameters and tokens;
+      ``run_dryrun(1)`` in this process and then
+      ``entry.dryrun_multichip(1)``, which spawns its own rank (each
+      replaying its step from a CUDA graph);
+  (h') the captured paths, ``jit`` of (d)'s forward on its 4 requests, of
+      (e)'s step chained over 10 steps (and at batch 4, a second
+      signature), and the sharded step on the (1, 1) mesh over 3 steps,
+      each bit for bit against the eager path, checked after every call
+      was made (no call overwrites what an earlier one returned); the
+      launch counters see each capture and no replay; one replay's
+      kernels, counted by name under the profiler, are the eager path's
+      launches; print the host medians beside the eager ones;
   (i) print the ring phases' launches by block, mask and head width, then
       ``{"kernels": [...]}``, launches summed over (d), (e), (e'), (g) and
-      (h) (for the ``_wide`` rows, over (e'); for a ring row at one block,
+      (h) (not (h'), whose replays only the profiler counts; for the
+      ``_wide`` rows, over (e'); for a ring row at one block,
       its launches at that block and mask in (g); the second paths went on
       a line of their own in (c), with no launches on the main path), then,
       last, the device line.
@@ -100,13 +111,15 @@ import time
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.autograd import DeviceType
 from torch.distributed.device_mesh import init_device_mesh
 
 from operator_forge_torch import demo
 from operator_forge_torch.entry import dryrun_multichip, entry, train_entry
+from operator_forge_torch.jit import WARMUP_CALLS, jit
 from operator_forge_torch.kernels import (
     attention, bf16_ulp, build, carry_close, grads_close, mlp, rmsnorm, run_twice,
-    row_ulps, rows_close, step_tolerance, within_floored_ulps,
+    row_ulps, rows_close, step_tolerance, within_floored_ulps, wrapper_call,
 )
 from operator_forge_torch.kernels import cross_entropy as ce
 from operator_forge_torch.kernels import ring_attention as ra
@@ -1026,13 +1039,35 @@ def measure(rows: list[dict], strict: bool = True) -> list[dict]:
     return out
 
 
-def phase_serve(config: demo.DemoConfig) -> dict:
-    fn, (params, tokens) = entry()
-    requests = [tokens] + [
+def host_median_ms(call, calls: int = 50) -> float:
+    """Median host time of ``calls`` calls, each ending in a synchronize."""
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def serve_requests(config: demo.DemoConfig, tokens: torch.Tensor) -> list:
+    """``entry()``'s token batch and ``REQUESTS - 1`` more, seeded."""
+    return [tokens] + [
         torch.randint(0, config.vocab, (config.batch, config.seq_len),
                       generator=torch.Generator().manual_seed(100 + i)).cuda()
         for i in range(REQUESTS - 1)
     ]
+
+
+def forward_launches(config: demo.DemoConfig) -> dict:
+    """Each kernel's launches in one forward call."""
+    return {"causal_attention": config.n_layers, "rmsnorm": 2 * config.n_layers,
+            "matmul_gelu": config.n_layers}
+
+
+def phase_serve(config: demo.DemoConfig) -> dict:
+    fn, (params, tokens) = entry()
+    requests = serve_requests(config, tokens)
     fn(params, tokens)  # warm the allocator and cuBLAS outside the count
     torch.cuda.synchronize()
 
@@ -1041,8 +1076,7 @@ def phase_serve(config: demo.DemoConfig) -> dict:
     torch.cuda.synchronize()
     launches = read_counts()
     per_call = dict.fromkeys(launches, 0)
-    per_call.update(causal_attention=config.n_layers, rmsnorm=2 * config.n_layers,
-                    matmul_gelu=config.n_layers)
+    per_call.update(forward_launches(config))
     for name, count in launches.items():
         if count != per_call[name] * len(requests):
             fail(f"{name} launched {count} times in {len(requests)} forward "
@@ -1064,13 +1098,7 @@ def phase_serve(config: demo.DemoConfig) -> dict:
             fail(f"card logits differ from the CPU forward by {err:.3e} > {tol:.3e}")
         worst = max(worst, err)
 
-    times = []
-    for _ in range(50):
-        t0 = time.perf_counter()
-        fn(params, tokens)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    median_s = statistics.median(times)
+    median_s = host_median_ms(lambda: fn(params, tokens)) / 1e3
     result = {
         "requests": len(requests),
         "launches": {name: launches[name] for name in ("causal_attention", "rmsnorm", "matmul_gelu")},
@@ -1346,8 +1374,7 @@ def phase_wide() -> dict:
     peak = torch.cuda.max_memory_allocated()
     launches = read_counts()
     per_step = step_launches(config)
-    forward = {"causal_attention": config.n_layers, "rmsnorm": 2 * config.n_layers,
-               "matmul_gelu": config.n_layers, "cross_entropy": 1}
+    forward = {**forward_launches(config), "cross_entropy": 1}
     for name, count in launches.items():
         want = forward.get(name, 0) + 2 * per_step[name]
         if count != want:
@@ -1384,7 +1411,9 @@ def phase_shard(config: demo.DemoConfig) -> dict:
     then the dryrun in this process and through its entry point."""
     fn, (params, tokens) = train_entry()
     mesh = demo.make_mesh(1)
-    step = demo.sharded_train_step(mesh, config)
+    # the eager step: sharded_train_step returns it jitted, whose replays
+    # the launch counters never see (phase h' holds the captured step)
+    step = demo.sharded_train_step(mesh, config).fn
     local = demo.shard_params(params, config, mesh)
     step(local, tokens)  # warm the allocator and NCCL outside the count
     torch.cuda.synchronize()
@@ -1443,6 +1472,136 @@ def phase_shard(config: demo.DemoConfig) -> dict:
     return {name: launches[name] + dry_launches[name] for name in COUNTERS}
 
 
+# how long a profiled call waits inside the profiler's window at each end
+# (the card tests' PROFILE_MARGIN_S: the profiler can place a kernel's
+# start before the launch that made it)
+PROFILE_MARGIN_S = 0.01
+
+
+def call_kernels(call) -> list[str]:
+    """Names of the device kernels the profiler records in one call of
+    ``call``, after one call outside the trace (a capture)."""
+    call()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        call()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def same_tree(a: dict, b: dict) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(demo.tree_leaves(a), demo.tree_leaves(b)))
+
+
+def check_capture_counts(before: dict, after: dict, per_call: dict, captures: int, what: str) -> None:
+    """The launch counters around a jitted function's calls: ``WARMUP_CALLS
+    + 1`` calls' worth for each capture (its warm-up and the call
+    captured), nothing for a replay."""
+    for name in COUNTERS:
+        want = (WARMUP_CALLS + 1) * captures * per_call.get(name, 0)
+        if after[name] - before[name] != want:
+            fail(f"{what}: {name} counted {after[name] - before[name]} times, not {want}")
+
+
+def phase_graph(config: demo.DemoConfig) -> dict:
+    """The captured paths (``jit``), each against its eager path bit for
+    bit: ``entry()``'s forward on the requests of (d), ``train_entry()``'s
+    step chained over ``TRAIN_STEPS`` steps (and a second signature, batch
+    4), ``sharded_train_step`` on the (1, 1) NCCL mesh over
+    ``SHARDED_STEPS`` steps against ``train_step``.  What a call returned
+    must be unchanged after the later calls; the launch counters must see
+    each capture and no replay; one replay's kernels, counted by name with
+    the profiler, must be each path's eager launches."""
+    result = {}
+    fn, (fwd_params, fwd_tokens) = entry()
+    requests = serve_requests(config, fwd_tokens)
+    eager = [fn(fwd_params, t) for t in requests]
+    forward = jit(fn)
+    before = read_counts()
+    logits = [forward(fwd_params, t) for t in requests]
+    torch.cuda.synchronize()
+    check_capture_counts(before, read_counts(), forward_launches(config), 1, "captured forward")
+    # each call's logits against the eager ones after every call was made
+    if len(forward.captures) != 1 or not all(map(torch.equal, logits, eager)):
+        fail("the captured forward's logits differ from the eager forward's")
+    result["forward"] = {
+        "requests": len(requests), "bits_equal_eager": True,
+        "host_median_ms": host_median_ms(lambda: forward(fwd_params, fwd_tokens)),
+        "eager_host_median_ms": host_median_ms(lambda: fn(fwd_params, fwd_tokens)),
+    }
+
+    fn, (params, tokens) = train_entry()
+    chain, stepped = [], params
+    for _ in range(TRAIN_STEPS):
+        stepped, loss = fn(stepped, tokens)
+        chain.append((stepped, loss))
+    step = jit(fn)
+    per_step = step_launches(config)
+    got, stepped, times = [], params, []
+    for i in range(TRAIN_STEPS):
+        before = read_counts()
+        t0 = time.perf_counter()
+        stepped, loss = step(stepped, tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check_capture_counts(before, read_counts(), per_step, int(i == 0), f"captured train step {i}")
+        got.append((stepped, loss))
+    for i, ((want, want_loss), (new, loss)) in enumerate(zip(chain, got)):
+        if not (torch.equal(loss, want_loss) and same_tree(new, want)):
+            fail(f"captured train step {i} differs from the eager chain's (checked after all "
+                 f"{TRAIN_STEPS} steps)")
+    half = tokens[:4].contiguous()
+    new, loss = step(params, half)
+    want, want_loss = fn(params, half)
+    if len(step.captures) != 2 or not (torch.equal(loss, want_loss) and same_tree(new, want)):
+        fail("the captured train step at batch 4, a second signature, differs from the eager step")
+    result["train_step"] = {
+        "steps": TRAIN_STEPS, "bits_equal_eager": True, "second_signature_bits_equal": True,
+        "step_median_ms": statistics.median(times[1:]) * 1e3,
+        "first_call_s": times[0],
+        "eager_step_median_ms": host_median_ms(lambda: fn(params, tokens), TRAIN_STEPS),
+    }
+
+    mesh = demo.make_mesh(1)
+    sharded = demo.sharded_train_step(mesh, config)
+    local, single, times = demo.shard_params(params, config, mesh), params, []
+    for i in range(SHARDED_STEPS):
+        t0 = time.perf_counter()
+        local, loss = sharded(local, tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        single, single_loss = demo.train_step(single, tokens, config)
+        if not (torch.equal(loss, single_loss) and same_tree(demo.gather_params(local, config, mesh), single)):
+            fail(f"captured sharded step {i} on the (1, 1) mesh differs from train_step's bits")
+    eager_local = demo.shard_params(params, config, mesh)
+    result["sharded_step"] = {
+        "mesh": list(mesh.mesh.shape), "steps": SHARDED_STEPS, "bits_equal_train_step": True,
+        "step_median_ms": host_median_ms(lambda: sharded(eager_local, tokens), TRAIN_STEPS),
+        "eager_step_median_ms": host_median_ms(lambda: sharded.fn(eager_local, tokens), TRAIN_STEPS),
+    }
+
+    # one replay's kernels by name, beside one eager call's, profiled
+    # last and together (the profiler's clock drifts from a process's
+    # first session)
+    for path, jitted, args, per_call in (
+        ("forward", forward, (fwd_params, fwd_tokens), forward_launches(config)),
+        ("train_step", step, (params, tokens), per_step),
+        ("sharded_step", sharded, (eager_local, tokens), per_step),
+    ):
+        names = call_kernels(lambda: jitted(*args))
+        counts = collections.Counter(filter(None, map(wrapper_call, names)))
+        want = {name: n for name, n in per_call.items() if n}
+        if counts != want:
+            fail(f"one replay of the captured {path} ran the port's kernels {dict(counts)}, not {want}")
+        result[path].update(replay_kernels=len(names), replay_port_kernels=dict(counts),
+                            eager_kernels=len(call_kernels(lambda: jitted.fn(*args))))
+    print(json.dumps({"graph": result}))
+    return result
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -1468,6 +1627,7 @@ def main() -> None:
                                 rank=0, world_size=1)
         try:
             paths += [phase_ring(config), phase_ring_grad(config), phase_shard(config)]
+            phase_graph(config)
         finally:
             dist.destroy_process_group()
     total = {name: sum(path[name] for path in paths) for name in COUNTERS}

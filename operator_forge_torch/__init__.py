@@ -15,9 +15,13 @@ first launch.
   counterpart of ``__graft_entry__.entry``), ``train_entry`` (the SGD
   step) and ``dryrun_multichip`` (the counterpart of
   ``__graft_entry__.dryrun_multichip``);
+- ``jit``: ``jit``, the counterpart of ``jax.jit``: a function of tensors
+  captured once per signature into a CUDA graph and replayed (called as it
+  is on CPU tensors); ``demo.sharded_train_step`` returns one;
 - ``ranks``: ``run_ranks``, a function run in spawned ranks of one
   process group (NCCL on cards, gloo on the CPU);
 - ``kernels``: the hand-written Hopper kernels and their plain versions;
-- ``trace_step``: where the train step's and the forward's time goes on
-  the card (``python -m operator_forge_torch.trace_step``).
+- ``trace_step``: where the time of the train step, the forward, the wide
+  step and the (1, 1) sharded step goes on the card, eager and captured
+  (``python -m operator_forge_torch.trace_step``).
 """

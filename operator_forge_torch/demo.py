@@ -28,6 +28,7 @@ each rank here runs its own program on plain local tensors over
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any
@@ -42,6 +43,7 @@ from .kernels.cross_entropy import cross_entropy
 from .kernels.mlp import mlp
 from .kernels.ring_attention import ring_step, ring_step_bwd
 from .kernels.rmsnorm import rmsnorm, rmsnorm_to_bf16
+from .jit import jit
 
 
 @dataclass(frozen=True)
@@ -358,11 +360,15 @@ def param_specs(config: DemoConfig) -> dict:
     }
 
 
-def _qkv_order(d_model: int, model: int, device=None) -> torch.Tensor:
+@functools.cache
+def _qkv_order(d_model: int, model: int, device: torch.device) -> torch.Tensor:
     """The column order of ``wqkv`` whose ``model`` equal chunks are
     ``[q_r | k_r | v_r]``, rank ``r``'s heads.  The reference shards
     ``wqkv``'s columns and then splits q, k and v globally (``demo.py:79``);
-    a contiguous chunk would hand rank 0 ``[q | half of k]``."""
+    a contiguous chunk would hand rank 0 ``[q | half of k]``.  Made once
+    for each ``(d_model, model, device)`` and shared (no caller writes to
+    it): its host-to-device copy then runs at a step's first call, never in
+    a captured one."""
     width = d_model // model
     return torch.tensor(
         [part * d_model + r * width + c for r in range(model) for part in range(3) for c in range(width)],
@@ -425,8 +431,12 @@ def gather_params(local: dict, config: DemoConfig, mesh: DeviceMesh) -> dict:
 
 def sharded_train_step(mesh: DeviceMesh, config: DemoConfig, sequence_parallel: bool = False):
     """The train step on a ``(data, model)`` mesh, the counterpart of
-    ``demo.py:163-186``: returns ``step(local_params, tokens) ->
-    (new_local_params, loss)``, run by every rank on its own shards.
+    ``demo.py:163-186``: returns ``jit(step)`` (``jit.py``), as the
+    reference returns ``jax.jit`` of its step, with ``step(local_params,
+    tokens) -> (new_local_params, loss)`` run by every rank on its own
+    shards.  On the card each rank replays its step from a CUDA graph,
+    NCCL's collectives inside it; on gloo (CPU tensors) ``step`` runs as it
+    is.  The returned function's ``fn`` is the plain ``step``.
 
     Tokens are this rank's ``[batch / data, tok_len]`` block, or with
     ``sequence_parallel`` its ``[batch / data, tok_len / model]`` block,
@@ -453,7 +463,7 @@ def sharded_train_step(mesh: DeviceMesh, config: DemoConfig, sequence_parallel: 
         grads = tree_map(lambda _: next(parts), grads)
         return _sgd(local, grads, config), next(parts).view(())
 
-    return step
+    return jit(step)
 
 
 def _block(t: torch.Tensor, dim: int, index: int, count: int) -> torch.Tensor:
@@ -466,7 +476,8 @@ def _block(t: torch.Tensor, dim: int, index: int, count: int) -> torch.Tensor:
 def run_dryrun(n_devices: int, config: DemoConfig | None = None, device: str | torch.device = "cuda") -> float:
     """The counterpart of ``demo.py:189-237``, run by each of ``n_devices``
     ranks of the default process group: one sharded (dp x tp, with
-    sequence-parallel inputs) train step on tiny shapes, then ring
+    sequence-parallel inputs) train step on tiny shapes (captured and
+    replayed on the card, by ``jit``), then ring
     attention over all ranks against the dense reference at rtol and atol
     3e-5 (raising if it disagrees).  Returns the loss.  Inputs come from
     seeded generators, the same on every rank."""

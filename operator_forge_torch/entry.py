@@ -38,9 +38,12 @@ def _seeded(config: demo.DemoConfig, device, seed: int, seq_len: int):
 def entry(device: str | torch.device = "cuda", seed: int = 0):
     """Return ``(fn, (params, tokens))``: the forward pass of
     ``DemoConfig()`` with parameters and a token batch [8, 64] drawn from
-    seeded generators.  The default device is the card; with none present
-    this raises unless ``device="cpu"`` is asked for.  Pins the products to
-    f32 accumulation for the whole process (``pin_numerics``)."""
+    seeded generators.  ``fn`` is the eager forward, the "jittable forward
+    step" of the reference's ``entry``: its caller takes ``jit.jit(fn)``
+    for the forward replayed from a CUDA graph.  The default device is the
+    card; with none present this raises unless ``device="cpu"`` is asked
+    for.  Pins the products to f32 accumulation for the whole process
+    (``pin_numerics``), before any capture."""
     config = demo.DemoConfig()
     params, tokens = _seeded(config, device, seed, config.seq_len)
     return partial(demo.forward, config=config), (params, tokens)
@@ -50,9 +53,11 @@ def train_entry(device: str | torch.device = "cuda", seed: int = 0):
     """Return ``(fn, (params, tokens))``: one SGD step of ``DemoConfig()``,
     ``fn(params, tokens) -> (new_params, loss)``, with parameters and a
     token batch [8, 65] (inputs and next-token targets) drawn from seeded
-    generators.  The default device is the card; with none present this
-    raises unless ``device="cpu"`` is asked for.  Pins the products to f32
-    accumulation for the whole process (``pin_numerics``)."""
+    generators.  ``fn`` is the eager step; ``jit.jit(fn)`` is the step
+    replayed from a CUDA graph.  The default device is the card; with none
+    present this raises unless ``device="cpu"`` is asked for.  Pins the
+    products to f32 accumulation for the whole process (``pin_numerics``),
+    before any capture."""
     config = demo.DemoConfig()
     params, tokens = _seeded(config, device, seed, config.seq_len + 1)
     return partial(demo.train_step, config=config), (params, tokens)
@@ -66,7 +71,9 @@ def _dryrun_rank(n_devices: int, device_type: str) -> float:
 def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda") -> float:
     """Run ``demo.run_dryrun`` in ``n_devices`` spawned ranks: one sharded
     (dp x tp, sequence-parallel inputs) train step on a ``(data, model)``
-    mesh, then ring attention over all ranks against the dense reference.
+    mesh (on the card, each rank's step captured and replayed by
+    ``jit``), then ring attention over all ranks against the dense
+    reference.
     Returns the loss, after checking it is not NaN.  The default device is
     the card, one card a rank on NCCL: this raises where there is no card
     or fewer cards than ranks.  With ``device="cpu"`` the ranks run on

@@ -14,6 +14,7 @@ launch.
 """
 
 import math
+import re
 
 import torch
 
@@ -111,3 +112,35 @@ def grads_close(got: torch.Tensor, want: torch.Tensor, tol: float = 2e-5) -> boo
     largest |want| of ``want``: the check of f32 gradients whose sums run
     in another order over up to thousands of terms."""
     return bool(((got - want).abs() <= tol * want.abs().max() + tol * want.abs()).all())
+
+
+# each wrapper by the device kernel that marks one of its calls (a call of
+# two launches, attention's backward, by its first), named as the launch
+# counters are; the MLP's two wrappers share ``mlp_kernel``, told apart by
+# its last template argument
+_CALL_KERNELS = {
+    "causal_attention_kernel": "causal_attention", "attention_stream_kernel": "causal_attention",
+    "causal_attention_bwd_dq_kernel": "causal_attention_bwd",
+    "attention_stream_dq_kernel": "causal_attention_bwd",
+    "rmsnorm_warp": "rmsnorm", "rmsnorm_block": "rmsnorm", "rmsnorm_bwd_kernel": "rmsnorm_bwd",
+    "ce_fwd_warp": "cross_entropy", "ce_fwd_block": "cross_entropy", "ce_bwd": "cross_entropy_bwd",
+    "ring_step_kernel": "ring_attention_step", "ring_step_tiled_kernel": "ring_attention_step",
+    "ring_step_wide_kernel": "ring_attention_step", "ring_step_long_kernel": "ring_attention_step",
+    "ring_step_bwd_kernel": "ring_attention_step_bwd",
+    "ring_step_bwd_tiled_kernel": "ring_attention_step_bwd",
+    "ring_step_bwd_wide_kernel": "ring_attention_step_bwd",
+}
+
+
+def wrapper_call(kernel: str) -> str | None:
+    """The wrapper (``causal_attention``, ``matmul_gelu_bwd``, ...) one of
+    whose calls a device kernel of the profiler's (demangled) name
+    ``kernel`` marks, or None for a kernel that marks none (the second
+    kernel of a call, a library's): how a CUDA graph's replay, which the
+    wrappers' counters never see, is counted."""
+    found = re.search(r"(\w+)<", kernel)
+    if not found:
+        return None
+    if found.group(1) == "mlp_kernel":
+        return "matmul_gelu_bwd" if re.search(r", true>\(", kernel) else "matmul_gelu"
+    return _CALL_KERNELS.get(found.group(1))

@@ -7,6 +7,7 @@ neither JAX nor the JAX package, so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import collections
 import math
 import os
 import subprocess
@@ -20,10 +21,11 @@ from torch.autograd import DeviceType
 from torch.distributed.device_mesh import init_device_mesh
 
 from operator_forge_torch import demo
-from operator_forge_torch.entry import dryrun_multichip, train_entry
+from operator_forge_torch.entry import dryrun_multichip, entry, train_entry
+from operator_forge_torch.jit import WARMUP_CALLS, jit
 from operator_forge_torch.kernels import (
     attention, bf16_ulp, carry_close, gelu, grads_close, mlp, rmsnorm, run_twice, step_tolerance,
-    rows_close, within_floored_ulps, within_ulps,
+    rows_close, within_floored_ulps, within_ulps, wrapper_call,
 )
 from operator_forge_torch.kernels import cross_entropy as ce
 from operator_forge_torch.kernels import ring_attention as ra
@@ -534,6 +536,86 @@ def test_ring_attention_gradient_matches_dense(nccl_one, shape):
         assert grads_close(g, w)
 
 
+def _same_tree(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(demo.tree_leaves(a), demo.tree_leaves(b)))
+
+
+def test_jitted_forward_gives_the_eager_bits(cuda):
+    """``jit`` of ``entry()``'s forward captures once and gives each
+    request the eager forward's bits; the logits the first call returned
+    are unchanged by the second."""
+    fn, (params, tokens) = entry()
+    other = torch.randint(0, 256, tokens.shape, generator=torch.Generator().manual_seed(7)).to(cuda)
+    jitted = jit(fn)
+    first = jitted(params, tokens)
+    kept = first.clone()
+    second = jitted(params, other)
+    assert len(jitted.captures) == 1
+    assert torch.equal(first, kept) and not torch.equal(first, second)
+    assert torch.equal(first, fn(params, tokens)) and torch.equal(second, fn(params, other))
+
+
+def test_jitted_train_step_gives_the_eager_bits(cuda):
+    """``jit`` of ``train_entry()``'s step, chained over 3 steps: each
+    step's loss and parameters are the eager chain's bits, and what a call
+    returned is unchanged by the next.  A batch of 4 is a second signature:
+    a second capture, with the eager bits too."""
+    fn, (params, tokens) = train_entry()
+    jitted = jit(fn)
+    eager = got = params
+    returned = []
+    for _ in range(3):
+        eager, want_loss = fn(eager, tokens)
+        got, loss = jitted(got, tokens)
+        assert torch.equal(loss, want_loss) and _same_tree(got, eager)
+        returned.append((got, loss, demo.tree_map(torch.clone, got), loss.clone()))
+    for got, loss, got_copy, loss_copy in returned:
+        assert torch.equal(loss, loss_copy) and _same_tree(got, got_copy)
+    half = tokens[:4].contiguous()
+    got, loss = jitted(params, half)
+    want, want_loss = fn(params, half)
+    assert len(jitted.captures) == 2
+    assert torch.equal(loss, want_loss) and _same_tree(got, want)
+
+
+def test_jitted_sharded_step_on_nccl_one_gives_train_steps_bits(nccl_one):
+    """``sharded_train_step`` on the (1, 1) mesh of an NCCL group of one,
+    captured with its collectives: 3 chained steps give the bits of its
+    plain ``step`` and of ``train_step``."""
+    config = demo.DemoConfig()
+    _, (params, tokens) = train_entry()
+    mesh = demo.make_mesh(1)
+    step = demo.sharded_train_step(mesh, config)
+    local = eager = demo.shard_params(params, config, mesh)
+    single = params
+    for _ in range(3):
+        local, loss = step(local, tokens)
+        eager, eager_loss = step.fn(eager, tokens)
+        single, single_loss = demo.train_step(single, tokens, config)
+        assert torch.equal(loss, eager_loss) and torch.equal(loss, single_loss)
+        assert _same_tree(local, eager) and _same_tree(demo.gather_params(local, config, mesh), single)
+    assert len(step.captures) == 1
+
+
+def test_jit_raises_where_the_function_syncs_the_host(cuda):
+    """A function that copies a value to the host (``.item()``) cannot be
+    captured: ``jit`` raises at every call, keeps no capture and returns
+    no eager result in its place; the card works on after it."""
+    calls = []
+
+    def fn(x):
+        calls.append(x)
+        return x * x.sum().item()
+
+    jitted = jit(fn)
+    x = torch.ones(4, device=cuda)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            jitted(x)
+    assert jitted.captures == {} and len(calls) == 2 * (WARMUP_CALLS + 1)
+    assert torch.equal(fn(x), torch.full((4,), 4.0, device=cuda))
+
+
 # How long a profiled call waits inside the profiler's window at each end.
 # The profiler keeps only device activities whose times, converted to the
 # host's clock, fall inside its window; on the card that conversion can put
@@ -816,6 +898,24 @@ def test_attention_path_by_shape(cuda, shape, tiles, args):
     bwd = _cuda_kernels(lambda: attention.causal_attention_bwd(qkv, dout, n_heads))
     assert len(fwd) == 1 and names[0] in fwd[0], fwd
     assert len(bwd) == 2 and names[1] in bwd[0] and names[2] in bwd[1], bwd
+
+
+@pytest.mark.parametrize("path", ["forward", "train_step"])
+def test_jitted_replay_runs_the_ports_kernels(cuda, path):
+    """One call of a captured path, its kernels counted by name
+    (``kernels.wrapper_call``): each wrapper's kernel as many times as the
+    eager path launches it (a layer's attention, its two RMSNorms and its
+    MLP, then cross entropy, forward and backward)."""
+    layers = demo.DemoConfig().n_layers
+    fn, args = entry() if path == "forward" else train_entry()
+    want = {"causal_attention": layers, "rmsnorm": 2 * layers, "matmul_gelu": layers}
+    if path == "train_step":
+        want.update({f"{name}_bwd": count for name, count in want.items()},
+                    cross_entropy=1, cross_entropy_bwd=1)
+    jitted = jit(fn)
+    names = _cuda_kernels(lambda: jitted(*args))
+    assert len(jitted.captures) == 1
+    assert collections.Counter(filter(None, map(wrapper_call, names))) == want, names
 
 
 def _slices_close(got, want_of, rows: int, check) -> None:

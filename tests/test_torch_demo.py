@@ -102,7 +102,7 @@ def _run(code: str, **env) -> subprocess.CompletedProcess:
 def test_port_imports_neither_jax_nor_the_jax_package():
     proc = _run(
         "import sys, operator_forge_torch, operator_forge_torch.demo, "
-        "operator_forge_torch.entry, operator_forge_torch.kernels.attention, "
+        "operator_forge_torch.entry, operator_forge_torch.jit, operator_forge_torch.kernels.attention, "
         "operator_forge_torch.kernels.build, operator_forge_torch.kernels.gelu, "
         "operator_forge_torch.kernels.mlp, "
         "operator_forge_torch.kernels.rmsnorm, operator_forge_torch.kernels.cross_entropy, "
