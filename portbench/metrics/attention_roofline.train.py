@@ -1,0 +1,8 @@
+"""Attention's kernels (csrc/causal_attention.cu) in the train entry: the
+least time of their calls over their device time, in %."""
+
+from portbench import readers
+
+
+def read(run):
+    return readers.roofline(run, "attention", "train")

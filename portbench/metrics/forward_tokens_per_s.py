@@ -1,0 +1,7 @@
+"""Tokens scored over the whole window's time, in tokens/s."""
+
+from portbench import readers
+
+
+def read(run):
+    return readers.tokens_per_s(run, "forward")
