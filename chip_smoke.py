@@ -114,7 +114,7 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.distributed.device_mesh import init_device_mesh
 
-from operator_forge_torch import demo
+from operator_forge_torch import demo, telemetry
 from operator_forge_torch.entry import dryrun_multichip, entry, train_entry
 from operator_forge_torch.jit import WARMUP_CALLS, jit
 from operator_forge_torch.kernels import (
@@ -133,20 +133,11 @@ REQUESTS = 4
 TRAIN_STEPS = 10
 SHARDED_STEPS = 3
 RING_RANKS = 4
-# each wrapper's launch counter; the kernels line's cross_entropy sums the
-# forward's and the backward's
-COUNTERS = {
-    "causal_attention": (attention, "launches"),
-    "rmsnorm": (rmsnorm, "launches"),
-    "matmul_gelu": (mlp, "launches"),
-    "causal_attention_bwd": (attention, "bwd_launches"),
-    "rmsnorm_bwd": (rmsnorm, "bwd_launches"),
-    "matmul_gelu_bwd": (mlp, "bwd_launches"),
-    "cross_entropy": (ce, "launches"),
-    "cross_entropy_bwd": (ce, "bwd_launches"),
-    "ring_attention_step": (ra, "launches"),
-    "ring_attention_step_bwd": (ra, "bwd_launches"),
-}
+# each wrapper's launch counter, ``kernels.<name>`` in ``telemetry``; the
+# kernels line's cross_entropy sums the forward's and the backward's
+COUNTERS = ("causal_attention", "rmsnorm", "matmul_gelu", "causal_attention_bwd", "rmsnorm_bwd",
+            "matmul_gelu_bwd", "cross_entropy", "cross_entropy_bwd", "ring_attention_step",
+            "ring_attention_step_bwd")
 # the ring's gradient is checked at these [batch, heads, seq, head_dim]
 # on RING_RANKS replayed ranks
 RING_GRAD_SHAPES = ((1, 4, 1024, 32), (1, 4, 4096, 32))
@@ -199,12 +190,11 @@ def graph_ms(fn, per_graph: int = 20, reps: int = 50) -> float:
 
 
 def reset_counts() -> None:
-    for module, counter in COUNTERS.values():
-        setattr(module, counter, 0)
+    telemetry.reset()
 
 
 def read_counts() -> dict:
-    return {name: getattr(module, counter) for name, (module, counter) in COUNTERS.items()}
+    return {name: telemetry.value(f"kernels.{name}") for name in COUNTERS}
 
 
 def bound(bytes_moved: int, flops: int, flop_per_s: float, *more: tuple) -> tuple[float, str]:
@@ -1283,9 +1273,10 @@ def replay_ring_grad(q, k, v, dout, n: int) -> tuple:
 def ring_of_one(q, k, v, mesh) -> torch.Tensor:
     """``demo.ring_attention`` over ``mesh``'s ``seq`` dim, a group of
     one: its block steps, all on the diagonal, tallied by block."""
-    before = ra.launches
+    before = telemetry.value("kernels.ring_attention_step")
     out = demo.ring_attention(q, k, v, mesh, axis="seq")
-    RING_BLOCK_LAUNCHES["fwd", q.shape[2], "diagonal", q.shape[3]] += ra.launches - before
+    launched = telemetry.value("kernels.ring_attention_step") - before
+    RING_BLOCK_LAUNCHES["fwd", q.shape[2], "diagonal", q.shape[3]] += launched
     return out
 
 
@@ -1295,9 +1286,10 @@ def ring_attention_grad(q, k, v, dout, mesh) -> tuple:
     tallied by block."""
     live = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     out = ring_of_one(*live, mesh)
-    before = ra.bwd_launches
+    before = telemetry.value("kernels.ring_attention_step_bwd")
     out.backward(dout)
-    RING_BLOCK_LAUNCHES["bwd", q.shape[2], "diagonal", q.shape[3]] += ra.bwd_launches - before
+    launched = telemetry.value("kernels.ring_attention_step_bwd") - before
+    RING_BLOCK_LAUNCHES["bwd", q.shape[2], "diagonal", q.shape[3]] += launched
     return tuple(t.grad for t in live)
 
 

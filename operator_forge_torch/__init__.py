@@ -21,7 +21,8 @@ first launch.
 - ``ranks``: ``run_ranks``, a function run in spawned ranks of one
   process group (NCCL on cards, gloo on the CPU);
 - ``kernels``: the hand-written Hopper kernels and their plain versions;
-- ``trace_step``: where the time of the train step, the forward, the wide
-  step and the (1, 1) sharded step goes on the card, eager and captured
-  (``python -m operator_forge_torch.trace_step``).
+- ``telemetry``: the one registry of the port's counters, spans and device
+  marks (``jit``'s calls, copies and captures, the kernels' launches, the
+  captured step's forward, backward and update timed on the device),
+  traced while a ``torch.profiler`` session is open.
 """

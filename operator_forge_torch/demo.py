@@ -44,6 +44,7 @@ from .kernels.mlp import mlp
 from .kernels.ring_attention import ring_step, ring_step_bwd
 from .kernels.rmsnorm import rmsnorm, rmsnorm_to_bf16
 from .jit import jit
+from . import telemetry
 
 
 @dataclass(frozen=True)
@@ -191,7 +192,8 @@ def forward(params: dict, tokens: torch.Tensor, config: DemoConfig, model=None) 
     ``model`` process group, ``params`` are this rank's Megatron shards
     (``shard_params``) and the collectives join them; the logits come out
     whole on every rank of the group."""
-    return _logits(params, tokens, config, model).float()
+    with telemetry.phase("step.forward"):
+        return _logits(params, tokens, config, model).float()
 
 
 def loss_fn(params: dict, tokens: torch.Tensor, config: DemoConfig, model=None) -> torch.Tensor:
@@ -205,10 +207,13 @@ def loss_fn(params: dict, tokens: torch.Tensor, config: DemoConfig, model=None) 
 
 def value_and_grad(params: dict, tokens: torch.Tensor, config: DemoConfig, model=None) -> tuple:
     """``(loss, grads)``, grads in the parameters' layout: the counterpart
-    of ``jax.value_and_grad(loss_fn)``, by autograd."""
+    of ``jax.value_and_grad(loss_fn)``, by autograd; the loss in the phase
+    ``step.forward``, the gradients in ``step.backward`` (``telemetry``)."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss = loss_fn(live, tokens, config, model)
-    grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
+    with telemetry.phase("step.forward"):
+        loss = loss_fn(live, tokens, config, model)
+    with telemetry.phase("step.backward"):
+        grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
     return loss.detach(), tree_map(lambda _: next(grads), live)
 
 
@@ -222,7 +227,8 @@ def train_step(params: dict, tokens: torch.Tensor, config: DemoConfig) -> tuple:
 
 def _sgd(params: dict, grads: dict, config: DemoConfig) -> dict:
     lr = config.learning_rate
-    return tree_map(lambda p, g: p.detach() - lr * g, params, grads)
+    with telemetry.phase("step.update"):
+        return tree_map(lambda p, g: p.detach() - lr * g, params, grads)
 
 
 # -- sharding ------------------------------------------------------------

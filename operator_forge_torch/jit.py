@@ -32,6 +32,13 @@ effects of ``fn``, such as the kernel wrappers' launch counters, happen
 while it is warmed and captured and never at a replay, as a jitted
 function's happen while it is traced.  ``jit(fn).fn`` is ``fn``.
 
+Every call counts and opens spans in ``telemetry``: ``jit.call`` around
+it, ``jit.capture`` (with ``jit.warmup``), ``jit.copy_in``,
+``jit.replay`` and ``jit.copy_out`` inside it.  The capture keeps the
+device marks that ``telemetry.phase`` records into the graph; a replay
+made while tracing is on queues them, and timing events around its
+copies, for ``telemetry`` to read.
+
 Each signature holds its static inputs, its outputs and the graph's
 private memory pool (every intermediate of a call) for as long as the
 jitted function lives.
@@ -40,9 +47,12 @@ jitted function lives.
 from __future__ import annotations
 
 import functools
+import time
 from dataclasses import dataclass
 
 import torch
+
+from . import telemetry
 
 # eager calls of a new signature before its capture
 WARMUP_CALLS = 3
@@ -87,6 +97,11 @@ def _unflatten(structure, leaves):
     return dict(zip(keys, built)) if kind is dict else kind(built)
 
 
+def nbytes(tensors: list) -> int:
+    """The bytes of ``tensors``' elements: what ``_copy`` moves to or from them."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _tensors(leaves: list, what: str) -> None:
     for leaf in leaves:
         if not isinstance(leaf, torch.Tensor):
@@ -95,13 +110,15 @@ def _tensors(leaves: list, what: str) -> None:
 
 @dataclass
 class Capture:
-    """One signature's graph: its static input and output leaves and the
-    output tree's structure."""
+    """One signature's graph: its static input and output leaves, the
+    output tree's structure, its device marks and the bytes a call copies."""
 
     graph: torch.cuda.CUDAGraph
     inputs: list
     outputs: list
     structure: tuple
+    marks: list         # the graph's device marks (``telemetry.phase``)
+    copy_bytes: int     # copied in and out at each call
 
 
 class Jitted:
@@ -114,43 +131,79 @@ class Jitted:
         self.captures: dict[tuple, Capture] = {}
 
     def __call__(self, *args, **kwargs):
-        leaves: list = []
-        structure = _flatten((args, kwargs), leaves)
-        _tensors(leaves, "arguments")
-        devices = {leaf.device for leaf in leaves}
-        if len(devices) > 1:
-            raise ValueError(f"jit: the arguments lie on more than one device: {sorted(map(str, devices))}")
-        if not devices or next(iter(devices)).type != "cuda":
-            return self.fn(*args, **kwargs)
-        key = (structure, tuple((leaf.shape, leaf.dtype, leaf.device) for leaf in leaves))
-        capture = self.captures.get(key)
-        if capture is None:
-            capture = self.captures[key] = self._capture(structure, leaves)
+        with telemetry.span("jit.call", telemetry.count("jit.calls")):
+            leaves: list = []
+            structure = _flatten((args, kwargs), leaves)
+            _tensors(leaves, "arguments")
+            devices = {leaf.device for leaf in leaves}
+            if len(devices) > 1:
+                raise ValueError(f"jit: the arguments lie on more than one device: {sorted(map(str, devices))}")
+            if not devices or next(iter(devices)).type != "cuda":
+                return self.fn(*args, **kwargs)
+            key = (structure, tuple((leaf.shape, leaf.dtype, leaf.device) for leaf in leaves))
+            capture = self.captures.get(key)
+            if capture is None:
+                capture = self.captures[key] = self._capture(structure, leaves)
+            return self._replay(capture, leaves)
+
+    @staticmethod
+    def _replay(capture: Capture, leaves: list):
+        """Copy in, replay, copy out; while tracing, the replay's marks and
+        timing events around the copies are queued for reading, and read at
+        the next replay (``telemetry.settle``)."""
+        traced = telemetry.tracing()
+        copies = [torch.cuda.Event(enable_timing=True) for _ in range(4)] if traced else None
         with torch.no_grad():
-            _copy(capture.inputs, leaves)
-            capture.graph.replay()
-            fresh = [torch.empty_like(out) for out in capture.outputs]
-            _copy(fresh, capture.outputs)
+            with telemetry.span("jit.copy_in"):
+                if traced:
+                    copies[0].record()
+                _copy(capture.inputs, leaves)
+                if traced:
+                    copies[1].record()
+            # read earlier replays' marks while the copy runs, before this
+            # replay records the graph's events again
+            telemetry.settle()
+            with telemetry.span("jit.replay"):
+                capture.graph.replay()
+            with telemetry.span("jit.copy_out"):
+                fresh = [torch.empty_like(out) for out in capture.outputs]
+                if traced:
+                    copies[2].record()
+                _copy(fresh, capture.outputs)
+                if traced:
+                    copies[3].record()
+        telemetry.count("jit.replays")
+        telemetry.count("jit.copy_bytes", capture.copy_bytes)
+        if traced:
+            telemetry.pending([*capture.marks, ("jit.copy", [(copies[0], copies[1]), (copies[2], copies[3])])])
         return _unflatten(capture.structure, iter(fresh))
 
     def _capture(self, structure, leaves: list) -> Capture:
         device = leaves[0].device
         inputs = [leaf.detach().clone() for leaf in leaves]
         args, kwargs = _unflatten(structure, iter(inputs))
-        with torch.cuda.device(device):
+        with telemetry.span("jit.capture"), torch.cuda.device(device):
+            started = time.perf_counter()
             stream = _capture_stream(device)
             stream.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(stream):
+            with telemetry.span("jit.warmup"), torch.cuda.stream(stream):
                 for _ in range(WARMUP_CALLS):
                     self.fn(*args, **kwargs)
+            warmed = time.perf_counter()
             torch.cuda.current_stream().wait_stream(stream)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=stream):
+            with telemetry.capturing() as marks, torch.cuda.graph(graph, stream=stream):
                 result = self.fn(*args, **kwargs)
+            # the capture began with a synchronize: its seconds hold the
+            # warm-up calls' device time
+            telemetry.count("jit.warmup_s", warmed - started)
+            telemetry.count("jit.capture_s", time.perf_counter() - warmed)
+            telemetry.count("jit.captures")
         outputs: list = []
         out_structure = _flatten(result, outputs)
         _tensors(outputs, "result")
-        return Capture(graph, inputs, [out.detach() for out in outputs], out_structure)
+        outputs = [out.detach() for out in outputs]
+        return Capture(graph, inputs, outputs, out_structure, marks, nbytes(inputs) + nbytes(outputs))
 
 
 def jit(fn) -> Jitted:

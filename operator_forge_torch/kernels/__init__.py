@@ -3,11 +3,12 @@ ring attention's block step, each beside its plain PyTorch version.
 
 Every wrapper dispatches on the device of the tensor it is given: a CPU
 tensor goes to the plain version, a CUDA tensor to the kernel (or the
-wrapper raises).  Each module with a kernel keeps plain integers
-``launches`` (forward) and ``bwd_launches`` (backward) that its wrappers
-raise by one per call that launches the kernel (a call of two launches
-counts once), so a run can show that the main path went through the
-kernels.  Each module's autograd ``Function`` ties its forward and
+wrapper raises).  Each wrapper raises its counter in ``telemetry``,
+``kernels.<wrapper>`` (``kernels.causal_attention``,
+``kernels.causal_attention_bwd``, ...), by one per call that launches the
+kernel (a call of two launches counts once), so a run can show that the
+main path went through the kernels; a replayed graph raises none.  Each
+module's autograd ``Function`` ties its forward and
 backward together.  Every kernel is CUDA C++ under ``csrc/``; importing
 these modules needs no ``nvcc``, which is reached only at the first
 launch.
@@ -116,8 +117,8 @@ def grads_close(got: torch.Tensor, want: torch.Tensor, tol: float = 2e-5) -> boo
 
 # each wrapper by the device kernel that marks one of its calls (a call of
 # two launches, attention's backward, by its first), named as the launch
-# counters are; the MLP's two wrappers share ``mlp_kernel``, told apart by
-# its last template argument
+# counters are, less their ``kernels.``; the MLP's two wrappers share
+# ``mlp_kernel``, told apart by its last template argument
 _CALL_KERNELS = {
     "causal_attention_kernel": "causal_attention", "attention_stream_kernel": "causal_attention",
     "causal_attention_bwd_dq_kernel": "causal_attention_bwd",

@@ -22,12 +22,10 @@ import functools
 
 import torch
 
+from .. import telemetry
 from . import build
 
 MASK_FILL = -1e30  # finite, as in the reference: exp(MASK_FILL - max) == 0
-
-launches = 0
-bwd_launches = 0
 
 
 def _heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -124,7 +122,6 @@ def tiles(b: int, s: int, n_heads: int, head_dim: int) -> bool:
 def causal_attention_fwd(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
     """bf16 ``[b, s, 3d]`` -> bf16 ``[b, s, d]``: the plain version for a
     CPU tensor, the CUDA kernel for a CUDA tensor."""
-    global launches
     b, s, head_dim = _check(qkv, n_heads)
     if qkv.device.type == "cpu":
         return causal_attention_ref(qkv, n_heads)
@@ -138,7 +135,7 @@ def causal_attention_fwd(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, status, "causal_attention")
-    launches += 1
+    telemetry.count("kernels.causal_attention")
     return out
 
 
@@ -148,7 +145,6 @@ def causal_attention_bwd(
     """bf16 ``qkv [b, s, 3d]`` and ``dout [b, s, d]`` -> bf16 ``dqkv
     [b, s, 3d]``: the plain version for CPU tensors, the CUDA kernels (two
     launches, counted once) for CUDA tensors."""
-    global bwd_launches
     b, s, head_dim = _check(qkv, n_heads)
     if dout.dtype != torch.bfloat16 or tuple(dout.shape) != (b, s, n_heads * head_dim):
         raise ValueError(
@@ -173,7 +169,7 @@ def causal_attention_bwd(
             b, s, n_heads, head_dim, torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, status, "causal_attention_bwd")
-    bwd_launches += 1
+    telemetry.count("kernels.causal_attention_bwd")
     return dqkv
 
 

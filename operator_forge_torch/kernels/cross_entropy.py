@@ -27,10 +27,9 @@ import functools
 
 import torch
 
+from .. import telemetry
 from . import build
 
-launches = 0
-bwd_launches = 0
 
 # each device's ticket counter for the forward's last block (0 between
 # launches); made at the first launch on the device
@@ -132,7 +131,6 @@ def cross_entropy_fwd(
     ``(loss, lse)``: the plain version for CPU tensors, one launch of the
     CUDA kernel for CUDA tensors.  A target outside ``[0, V)`` is not
     checked on the card (that would wait for it) and picks no logit."""
-    global launches
     if _check(logits, targets, "cross_entropy"):
         return cross_entropy_ref(logits, targets)
     x, t = _rows(logits, targets)
@@ -149,7 +147,7 @@ def cross_entropy_fwd(
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, status, "cross_entropy")
-    launches += 1
+    telemetry.count("kernels.cross_entropy")
     return loss, lse
 
 
@@ -159,7 +157,6 @@ def cross_entropy_bwd(
     """``dlogits`` in logits' shape and type for the loss gradient ``grad``
     (an f32 scalar tensor) and the forward's ``lse``: the plain version for
     CPU tensors, one launch of the CUDA kernel for CUDA tensors."""
-    global bwd_launches
     cpu = _check(logits, targets, "cross_entropy_bwd")
     n_rows = targets.numel()
     if (lse.dtype != torch.float32 or tuple(lse.shape) != (n_rows,)
@@ -181,7 +178,7 @@ def cross_entropy_bwd(
             dx.data_ptr(), n_rows, x.shape[1], torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, status, "cross_entropy_bwd")
-    bwd_launches += 1
+    telemetry.count("kernels.cross_entropy_bwd")
     return dx.reshape(logits.shape)
 
 

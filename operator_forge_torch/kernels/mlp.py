@@ -34,11 +34,9 @@ import functools
 
 import torch
 
+from .. import telemetry
 from . import bf16_ulp, build
 from .gelu import gelu_tanh_bwd_ref, gelu_tanh_ref
-
-launches = 0
-bwd_launches = 0
 
 
 def matmul_gelu_ref(x: torch.Tensor, w1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -90,7 +88,6 @@ def matmul_gelu(x: torch.Tensor, w1: torch.Tensor,
     """bf16 ``x [..., K]`` and ``w1 [K, N]`` -> ``(h, h_pre)``, each bf16
     ``[..., N]``; ``h_pre`` is None unless ``keep_pre``.  The plain version
     for CPU tensors, one launch of the CUDA kernel for CUDA tensors."""
-    global launches
     _check_bf16("matmul_gelu", x=x, w1=w1)
     if x.dim() < 1 or w1.dim() != 2 or x.shape[-1] != w1.shape[0] or min(
             x.numel(), w1.numel()) < 1:
@@ -112,7 +109,7 @@ def matmul_gelu(x: torch.Tensor, w1: torch.Tensor,
             x.numel() // k, n, k, torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, status, "matmul_gelu")
-    launches += 1
+    telemetry.count("kernels.matmul_gelu")
     return h, h_pre
 
 
@@ -120,7 +117,6 @@ def matmul_gelu_bwd(dy: torch.Tensor, w2: torch.Tensor, h_pre: torch.Tensor) -> 
     """bf16 ``dy [..., D]``, ``w2 [N, D]`` and ``h_pre [..., N]`` ->
     bf16 ``dh_pre [..., N]``: the plain version for CPU tensors, one launch
     of the CUDA kernel for CUDA tensors."""
-    global bwd_launches
     _check_bf16("matmul_gelu_bwd", dy=dy, w2=w2, h_pre=h_pre)
     if (dy.dim() < 1 or w2.dim() != 2 or dy.shape[-1] != w2.shape[1]
             or tuple(h_pre.shape) != (*dy.shape[:-1], w2.shape[0])
@@ -140,7 +136,7 @@ def matmul_gelu_bwd(dy: torch.Tensor, w2: torch.Tensor, h_pre: torch.Tensor) -> 
             n, d, torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, status, "matmul_gelu_bwd")
-    bwd_launches += 1
+    telemetry.count("kernels.matmul_gelu_bwd")
     return dh_pre
 
 

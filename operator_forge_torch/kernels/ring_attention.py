@@ -22,10 +22,8 @@ import math
 
 import torch
 
+from .. import telemetry
 from . import build
-
-launches = 0
-bwd_launches = 0
 
 
 def _scale(d: int, device) -> torch.Tensor:
@@ -144,7 +142,6 @@ def ring_step(q, k_blk, v_blk, m, num, den, q_block: int, k_block: int) -> tuple
     under 64 past heads of 256), a second warp-a-row kernel for the rest.
     A later block (``k_block > q_block``), whose keys are all masked, is one
     launch too: its blocks exit at once and the carry keeps its bits."""
-    global launches
     b, h, s, d = _check(q, k_blk, v_blk, m, num, den)
     tensors = (q, k_blk, v_blk, m, num, den)
     if _plain("ring_step", tensors, q_block, k_block):
@@ -152,7 +149,7 @@ def ring_step(q, k_blk, v_blk, m, num, den, q_block: int, k_block: int) -> tuple
             t.copy_(new)
         return m, num, den
     _launch("ring_step", tensors, b, h, s, d, q_block, k_block)
-    launches += 1
+    telemetry.count("kernels.ring_attention_step")
     return m, num, den
 
 
@@ -167,7 +164,6 @@ def ring_step_bwd(q, k_blk, v_blk, dout, m, den, big_d, q_block: int, k_block: i
     of 256, register tiles up to heads of 128, register tiles that take the
     head in column chunks past it), whose blocks of a later block exit at
     once, leaving the accumulators' bits as they were."""
-    global bwd_launches
     b, h, s, d = _check(q, k_blk, v_blk, m, dq, den)
     for name, t, dtype, shape in (
         ("dout", dout, q.dtype, q.shape), ("big_d", big_d, torch.float32, m.shape),
@@ -182,5 +178,5 @@ def ring_step_bwd(q, k_blk, v_blk, dout, m, den, big_d, q_block: int, k_block: i
             t.copy_(new)
         return dq, dk_blk, dv_blk
     _launch("ring_step_bwd", tensors, b, h, s, d, q_block, k_block)
-    bwd_launches += 1
+    telemetry.count("kernels.ring_attention_step_bwd")
     return dq, dk_blk, dv_blk

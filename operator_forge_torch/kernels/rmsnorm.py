@@ -35,12 +35,10 @@ import functools
 import torch
 import torch.distributed as dist
 
+from .. import telemetry
 from . import build
 
 EPS = 1e-6
-
-launches = 0
-bwd_launches = 0
 
 
 def rmsnorm_ref(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
@@ -83,7 +81,6 @@ def rmsnorm_fwd(x: torch.Tensor, gain: torch.Tensor,
     """f32 ``[..., d]`` with f32 gain ``[d]`` -> ``[..., d]`` of ``dtype``
     (f32, or bf16 rounded once from the f32 value): the plain version for a
     CPU tensor, one launch of the CUDA kernel for a CUDA tensor."""
-    global launches
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"rmsnorm writes f32 or bf16, not {dtype}")
     d = x.shape[-1]
@@ -96,7 +93,7 @@ def rmsnorm_fwd(x: torch.Tensor, gain: torch.Tensor,
         status = entry(x.data_ptr(), gain.data_ptr(), y.data_ptr(), x.numel() // d, d,
                        torch.cuda.current_stream().cuda_stream)
     build.check(lib, status, "rmsnorm")
-    launches += 1
+    telemetry.count("kernels.rmsnorm")
     return y
 
 
@@ -132,7 +129,6 @@ def rmsnorm_bwd(
     ``dy`` (f32, x's shape): the plain version for CPU tensors, one launch
     of the CUDA kernel for CUDA tensors (one a window of columns, counted
     once, for rows too wide or too many for one; see the source)."""
-    global bwd_launches
     if dy.dtype != torch.float32 or dy.shape != x.shape:
         raise ValueError(
             f"rmsnorm_bwd takes dy f32 {tuple(x.shape)}, got {dy.dtype} {tuple(dy.shape)}"
@@ -151,7 +147,7 @@ def rmsnorm_bwd(
             x.numel() // d, d, torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, status, "rmsnorm_bwd")
-    bwd_launches += 1
+    telemetry.count("kernels.rmsnorm_bwd")
     return dx, dgain
 
 

@@ -1,0 +1,9 @@
+"""The captured train step's backward (autograd's gradients) in the
+traced stretch, timed on the device by the marks around it
+(``step.backward``): the mean over the replays read, in ms."""
+
+from portbench import program
+
+
+def read(run):
+    return program.device_ms(run, "train", "step.backward")

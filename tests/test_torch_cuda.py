@@ -20,9 +20,9 @@ import torch.distributed as dist
 from torch.autograd import DeviceType
 from torch.distributed.device_mesh import init_device_mesh
 
-from operator_forge_torch import demo
+from operator_forge_torch import demo, telemetry
 from operator_forge_torch.entry import dryrun_multichip, entry, train_entry
-from operator_forge_torch.jit import WARMUP_CALLS, jit
+from operator_forge_torch.jit import WARMUP_CALLS, jit, nbytes
 from operator_forge_torch.kernels import (
     attention, bf16_ulp, carry_close, gelu, grads_close, mlp, rmsnorm, run_twice, step_tolerance,
     rows_close, within_floored_ulps, within_ulps, wrapper_call,
@@ -33,6 +33,11 @@ from operator_forge_torch.kernels import ring_attention as ra
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 pytestmark = pytest.mark.cuda
+
+
+def _launches(wrapper: str) -> tuple:
+    """The launch counters of ``wrapper`` and of its backward."""
+    return telemetry.value(f"kernels.{wrapper}"), telemetry.value(f"kernels.{wrapper}_bwd")
 
 
 @pytest.fixture
@@ -78,10 +83,10 @@ def test_attention_kernel_matches_plain(cuda, b, s, n_heads, head_dim):
     each bf16 rounding.  Two launches on the same inputs give the same
     bits."""
     qkv = _normal((b, s, 3 * n_heads * head_dim), 0, cuda).bfloat16()
-    before = attention.launches
+    before = telemetry.value("kernels.causal_attention")
     (got,), same = run_twice(lambda: attention.causal_attention(qkv, n_heads))
     torch.cuda.synchronize()
-    assert attention.launches == before + 2 and same
+    assert telemetry.value("kernels.causal_attention") == before + 2 and same
     assert rows_close(got, attention.causal_attention_ref(qkv, n_heads), head_dim)
 
 
@@ -103,14 +108,14 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape):
     call, the same bits from two."""
     x = _normal(shape, 1, cuda, scale=3.0)
     gain = _normal(shape[-1:], 2, cuda)
-    before = rmsnorm.launches
+    before = telemetry.value("kernels.rmsnorm")
     got = rmsnorm.rmsnorm(x, gain)
     torch.cuda.synchronize()
-    assert rmsnorm.launches == before + 1
+    assert telemetry.value("kernels.rmsnorm") == before + 1
     want = rmsnorm.rmsnorm_ref(x, gain)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     (got,), same = run_twice(lambda: rmsnorm.rmsnorm_fwd(x, gain, torch.bfloat16))
-    assert rmsnorm.launches == before + 3 and same and got.dtype == torch.bfloat16
+    assert telemetry.value("kernels.rmsnorm") == before + 3 and same and got.dtype == torch.bfloat16
     assert _within_bf16_ulp(got, want.to(torch.bfloat16))
 
 
@@ -153,11 +158,11 @@ def test_matmul_gelu_kernel_matches_plain(cuda, m, k, n):
     launch a call, the same bits from two, and the served call (no h_pre)
     gives h's bits."""
     x, w1 = _mlp_fwd_inputs(m, k, n, cuda)
-    before = mlp.launches
+    before = telemetry.value("kernels.matmul_gelu")
     (h, h_pre), same = run_twice(lambda: mlp.matmul_gelu(x, w1))
     served, none = mlp.matmul_gelu(x, w1, keep_pre=False)
     torch.cuda.synchronize()
-    assert mlp.launches == before + 3 and same and none is None
+    assert telemetry.value("kernels.matmul_gelu") == before + 3 and same and none is None
     assert h.shape == h_pre.shape == (m, n) and torch.equal(served, h)
     assert within_floored_ulps(h_pre, mlp.matmul_gelu_ref(x, w1)[1], 1)
     assert mlp.gelu_close(h, h_pre)
@@ -187,9 +192,9 @@ def test_attention_bwd_kernel_matches_plain(cuda, b, s, n_heads, head_dim):
     d = n_heads * head_dim
     qkv = _normal((b, s, 3 * d), 4, cuda).bfloat16()
     dout = _normal((b, s, d), 5, cuda).bfloat16()
-    before = attention.bwd_launches
+    before = telemetry.value("kernels.causal_attention_bwd")
     (got,), same = run_twice(lambda: attention.causal_attention_bwd(qkv, dout, n_heads))
-    assert attention.bwd_launches == before + 2 and same
+    assert telemetry.value("kernels.causal_attention_bwd") == before + 2 and same
     want = attention.causal_attention_bwd_ref(qkv, dout, n_heads)
     assert rows_close(got, want, head_dim, 3)
 
@@ -206,9 +211,9 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape):
     x = _normal(shape, 6, cuda, scale=3.0)
     dy = _normal(shape, 7, cuda)
     gain = _normal(shape[-1:], 8, cuda)
-    before = rmsnorm.bwd_launches
+    before = telemetry.value("kernels.rmsnorm_bwd")
     got, same = run_twice(lambda: rmsnorm.rmsnorm_bwd(x, gain, dy))
-    assert rmsnorm.bwd_launches == before + 2 and same
+    assert telemetry.value("kernels.rmsnorm_bwd") == before + 2 and same
     for g, w in zip(got, rmsnorm.rmsnorm_bwd_ref(x, gain, dy)):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6 * float(w.abs().max()))
 
@@ -221,10 +226,10 @@ def test_matmul_gelu_bwd_kernel_matches_plain(cuda, m, k, n):
     scales that ulp before the second rounding, which can then land two
     ulps of dh_pre apart.  One launch a call, the same bits from two."""
     dy, w2, h_pre = _mlp_bwd_inputs(m, k, n, cuda)
-    before = mlp.bwd_launches
+    before = telemetry.value("kernels.matmul_gelu_bwd")
     (got,), same = run_twice(lambda: mlp.matmul_gelu_bwd(dy, w2, h_pre))
     torch.cuda.synchronize()
-    assert mlp.bwd_launches == before + 2 and same and got.shape == (m, n)
+    assert telemetry.value("kernels.matmul_gelu_bwd") == before + 2 and same and got.shape == (m, n)
     assert within_floored_ulps(got, mlp.matmul_gelu_bwd_ref(dy, w2, h_pre), 2)
 
 
@@ -245,10 +250,10 @@ def test_cross_entropy_kernels_match_plain(cuda, rows, vocab):
         logits = _normal((*rows, vocab), 11, cuda, scale=2.0).to(dtype)
         targets = torch.randint(0, vocab, rows, generator=torch.Generator().manual_seed(12)).to(cuda)
         grad = torch.tensor(0.75, device=cuda)
-        before = (ce.launches, ce.bwd_launches)
+        before = _launches("cross_entropy")
         (loss, lse), same = run_twice(lambda: ce.cross_entropy_fwd(logits, targets))
         (dlogits,), same_bwd = run_twice(lambda: ce.cross_entropy_bwd(logits, targets, lse, grad))
-        assert (ce.launches, ce.bwd_launches) == (before[0] + 2, before[1] + 2)
+        assert _launches("cross_entropy") == (before[0] + 2, before[1] + 2)
         assert same and same_bwd and dlogits.dtype == dtype
         want_loss, want_lse = ce.cross_entropy_ref(logits, targets)
         torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
@@ -423,10 +428,10 @@ def test_ring_step_kernel_matches_plain(cuda, shape, dtype, case):
     def step():
         return ra.ring_step(q, k, v, *(t.clone() for t in carry), my, origin)
 
-    before = ra.launches
+    before = telemetry.value("kernels.ring_attention_step")
     got, same = run_twice(step)
     torch.cuda.synchronize()
-    assert ra.launches == before + 2 and same
+    assert telemetry.value("kernels.ring_attention_step") == before + 2 and same
     for g, w in zip(got, want):
         assert carry_close(g, w, scaled=shape[2] > 1024)
     if case == "later":
@@ -498,10 +503,10 @@ def test_ring_step_bwd_kernel_matches_plain(cuda, shape, dtype, case):
     def step():
         return ra.ring_step_bwd(*inputs, my, origin, *(t.clone() for t in acc))
 
-    before = ra.bwd_launches
+    before = telemetry.value("kernels.ring_attention_step_bwd")
     got, same = run_twice(step)
     torch.cuda.synchronize()
-    assert ra.bwd_launches == before + 2 and same
+    assert telemetry.value("kernels.ring_attention_step_bwd") == before + 2 and same
     for g, w in zip(got, want):
         assert grads_close(g, w)
     if case == "later":
@@ -525,10 +530,10 @@ def test_ring_attention_gradient_matches_dense(nccl_one, shape):
     gradient's max of autograd through ``dense_causal_attention``."""
     q, k, v = (_normal(shape, 50 + i, "cuda").requires_grad_() for i in range(3))
     dout = _normal(shape, 53, "cuda")
-    before = ra.bwd_launches
+    before = telemetry.value("kernels.ring_attention_step_bwd")
     demo.ring_attention(q, k, v, nccl_one, axis="seq").backward(dout)
     torch.cuda.synchronize()
-    assert ra.bwd_launches == before + 1
+    assert telemetry.value("kernels.ring_attention_step_bwd") == before + 1
     got = [t.grad for t in (q, k, v)]
     q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
     demo.dense_causal_attention(q2, k2, v2).backward(dout)
@@ -616,13 +621,37 @@ def test_jit_raises_where_the_function_syncs_the_host(cuda):
     assert torch.equal(fn(x), torch.full((4,), 4.0, device=cuda))
 
 
+def test_jit_counts_calls_replays_captures_and_copied_bytes(cuda):
+    """``telemetry`` counts each call, replay and capture of a jitted
+    forward, the bytes copied in and out (arguments and logits) a call and
+    each capture's seconds; a wrapper's launches are those of the warm-up
+    and capture calls, never a replay's.  With no profiler session open no
+    device mark is read."""
+    fn, (params, tokens) = entry()
+    half = tokens[:4].contiguous()
+    jitted = jit(fn)
+    telemetry.reset()
+    for _ in range(3):
+        logits = jitted(params, tokens)
+    half_logits = jitted(params, half)
+    snap = telemetry.snapshot()
+    counters = snap["counters"]
+    weights = nbytes(demo.tree_leaves(params))
+    copied = 3 * (weights + nbytes([tokens, logits])) + weights + nbytes([half, half_logits])
+    assert (counters["jit.calls"], counters["jit.replays"], counters["jit.captures"]) == (4, 4, 2)
+    assert counters["jit.copy_bytes"] == copied
+    assert counters["jit.warmup_s"] > 0 and counters["jit.capture_s"] > 0
+    launches = 2 * (WARMUP_CALLS + 1) * demo.DemoConfig().n_layers
+    assert counters["kernels.causal_attention"] == launches
+    assert snap["device"] == {} and snap["skipped"] == 0
+
+
 # How long a profiled call waits inside the profiler's window at each end.
 # The profiler keeps only device activities whose times, converted to the
 # host's clock, fall inside its window; on the card that conversion can put
 # a kernel's start before the launch call that made it, and a call made as
-# soon as the window opens then falls outside it, leaving the trace empty.
-# ``python -m operator_forge_torch.profile_window`` counts such traces with
-# and without a margin.
+# soon as the window opens then falls outside it, leaving the trace empty
+# (the benchmark's traced stretch keeps the same guard, ``portbench/trace.py``).
 PROFILE_MARGIN_S = 0.01
 
 
@@ -916,6 +945,46 @@ def test_jitted_replay_runs_the_ports_kernels(cuda, path):
     names = _cuda_kernels(lambda: jitted(*args))
     assert len(jitted.captures) == 1
     assert collections.Counter(filter(None, map(wrapper_call, names))) == want, names
+
+
+def test_device_marks_of_a_replayed_step_add_up_to_its_busy_time(cuda):
+    """Replays of a train step under the profiler: every replay's device
+    marks are read (``step.forward``, ``step.backward``, ``step.update``
+    and ``jit``'s copies, none skipped), and their sum comes within 3% of
+    the profiler's busy time a call.  The step is ``DemoConfig()``'s at
+    widths of 1024 over 1024 tokens (about 19 ms a call): at
+    ``DemoConfig()``'s own 0.37 ms the card waits on the host's launches
+    between kernels, and a mark counts that wait where busy time does not
+    (1.49 times the busy time on an H100)."""
+    config = demo.DemoConfig(vocab=8192, d_model=1024, n_heads=8, n_layers=2, d_ff=4096,
+                             seq_len=1024, batch=8, learning_rate=1e-3)
+    params = demo.init_params(config, torch.Generator().manual_seed(0), cuda)
+    tokens = torch.randint(0, config.vocab, (config.batch, config.seq_len + 1),
+                           generator=torch.Generator().manual_seed(1)).to(cuda)
+    step = jit(lambda p, t: demo.train_step(p, t, config))
+    calls = 10
+    params, loss = step(params, tokens)
+    loss.item()
+    telemetry.reset()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        for _ in range(calls):
+            params, loss = step(params, tokens)
+            loss.item()
+        time.sleep(PROFILE_MARGIN_S)
+    snap = telemetry.snapshot()
+    names = ("step.forward", "step.backward", "step.update", "jit.copy")
+    assert {name: total["reads"] for name, total in snap["device"].items()} == dict.fromkeys(names, calls)
+    assert snap["skipped"] == 0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, reach = 0.0, -math.inf
+    for start, end in spans:
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    marked = sum(total["seconds"] for total in snap["device"].values())
+    assert marked == pytest.approx(busy / 1e6, rel=0.03)
 
 
 def _slices_close(got, want_of, rows: int, check) -> None:

@@ -107,7 +107,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "operator_forge_torch.kernels.mlp, "
         "operator_forge_torch.kernels.rmsnorm, operator_forge_torch.kernels.cross_entropy, "
         "operator_forge_torch.kernels.ring_attention, operator_forge_torch.ranks, "
-        "operator_forge_torch.trace_step, operator_forge_torch.profile_window\n"
+        "operator_forge_torch.telemetry\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'operator_forge')]\n"
         "assert not bad, bad"
     )

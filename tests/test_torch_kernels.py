@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from operator_forge.tpu import demo as jdemo
-from operator_forge_torch import demo
+from operator_forge_torch import demo, telemetry
 from operator_forge_torch.kernels import (
     attention, bf16_ulp, carry_close, gelu, rmsnorm, row_ulps, rows_close, run_twice, step_tolerance,
     within_ulps,
@@ -25,6 +25,11 @@ CONFIGS = {
     "test": dict(d_model=64, n_heads=2, n_layers=2, d_ff=128, seq_len=16, batch=8),
     "default": {},
 }
+
+
+def _launches(wrapper: str) -> tuple:
+    """The launch counters of ``wrapper`` and of its backward."""
+    return telemetry.value(f"kernels.{wrapper}"), telemetry.value(f"kernels.{wrapper}_bwd")
 
 
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
@@ -74,11 +79,11 @@ def test_attention_is_causal():
 
 def test_attention_wrapper_takes_plain_version_on_cpu():
     qkv = _qkv(2, 16, 2, 32)
-    before = attention.launches
+    before = telemetry.value("kernels.causal_attention")
     assert torch.equal(
         attention.causal_attention(qkv, 2), attention.causal_attention_ref(qkv, 2)
     )
-    assert attention.launches == before
+    assert telemetry.value("kernels.causal_attention") == before
 
 
 @pytest.mark.parametrize(
@@ -107,9 +112,9 @@ def test_rmsnorm_matches_jax():
 def test_rmsnorm_wrapper_takes_plain_version_on_cpu():
     x = torch.from_numpy(_sigma3((4, 16, 64), seed=3))
     gain = torch.linspace(0.5, 1.5, 64)
-    before = rmsnorm.launches
+    before = telemetry.value("kernels.rmsnorm")
     assert torch.equal(rmsnorm.rmsnorm(x, gain), rmsnorm.rmsnorm_ref(x, gain))
-    assert rmsnorm.launches == before
+    assert telemetry.value("kernels.rmsnorm") == before
     with pytest.raises(ValueError):
         rmsnorm.rmsnorm(x.bfloat16(), gain)
     with pytest.raises(ValueError):
@@ -127,7 +132,7 @@ def test_rmsnorm_to_bf16_matches_jax_and_the_unfused_chain():
     want = torch.from_numpy(np.array(want.astype(jnp.float32)))
     fused = [torch.from_numpy(x).requires_grad_(), torch.from_numpy(gain).requires_grad_()]
     chain = [t.detach().clone().requires_grad_() for t in fused]
-    before = (rmsnorm.launches, rmsnorm.bwd_launches)
+    before = _launches("rmsnorm")
     got = rmsnorm.rmsnorm_to_bf16(*fused)
     unfused = rmsnorm.rmsnorm(*chain).to(torch.bfloat16)
     assert got.dtype == torch.bfloat16 and torch.equal(got, unfused)
@@ -136,7 +141,7 @@ def test_rmsnorm_to_bf16_matches_jax_and_the_unfused_chain():
     got.backward(dy)
     unfused.backward(dy)
     assert all(torch.equal(a.grad, b.grad) for a, b in zip(fused, chain))
-    assert (rmsnorm.launches, rmsnorm.bwd_launches) == before
+    assert _launches("rmsnorm") == before
 
 
 def test_rmsnorm_fwd_writes_f32_or_bf16():

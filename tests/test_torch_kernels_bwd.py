@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from operator_forge.tpu import demo as jdemo
-from operator_forge_torch import demo
+from operator_forge_torch import demo, telemetry
 from operator_forge_torch.kernels import attention, bf16_ulp, gelu, rmsnorm, rows_close
 from operator_forge_torch.kernels import cross_entropy as ce
 
@@ -22,6 +22,11 @@ CONFIGS = {
     "test": dict(d_model=64, n_heads=2, n_layers=2, d_ff=128, seq_len=16, batch=8),
     "default": {},
 }
+
+
+def _launches(wrapper: str) -> tuple:
+    """The launch counters of ``wrapper`` and of its backward."""
+    return telemetry.value(f"kernels.{wrapper}"), telemetry.value(f"kernels.{wrapper}_bwd")
 
 
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
@@ -339,7 +344,7 @@ class TestWrappersOnCpu:
     def test_attention(self):
         qkv = _qkv(2, 16, 2, 32)
         dout = torch.from_numpy(_normal((2, 16, 64), 30)).bfloat16()
-        before = (attention.launches, attention.bwd_launches)
+        before = _launches("causal_attention")
         assert torch.equal(
             attention.causal_attention_bwd(qkv, dout, 2),
             attention.causal_attention_bwd_ref(qkv, dout, 2),
@@ -349,7 +354,7 @@ class TestWrappersOnCpu:
         assert torch.equal(out, attention.causal_attention_ref(qkv, 2))
         out.backward(dout)
         assert torch.equal(live.grad, attention.causal_attention_bwd_ref(qkv, dout, 2))
-        assert (attention.launches, attention.bwd_launches) == before
+        assert _launches("causal_attention") == before
 
     @pytest.mark.parametrize(
         "dout, n_heads",
@@ -368,14 +373,14 @@ class TestWrappersOnCpu:
         x = torch.from_numpy(_normal((4, 16, 64), 31, scale=3.0))
         dy = torch.from_numpy(_normal((4, 16, 64), 32))
         gain = torch.linspace(0.5, 1.5, 64)
-        before = (rmsnorm.launches, rmsnorm.bwd_launches)
+        before = _launches("rmsnorm")
         got = rmsnorm.rmsnorm_bwd(x, gain, dy)
         want = rmsnorm.rmsnorm_bwd_ref(x, gain, dy)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         lx, lg = x.clone().requires_grad_(), gain.clone().requires_grad_()
         rmsnorm.rmsnorm(lx, lg).backward(dy)
         assert torch.equal(lx.grad, want[0]) and torch.equal(lg.grad, want[1])
-        assert (rmsnorm.launches, rmsnorm.bwd_launches) == before
+        assert _launches("rmsnorm") == before
         for bad in (dy.bfloat16(), dy[..., :32], dy[0]):
             with pytest.raises(ValueError):
                 rmsnorm.rmsnorm_bwd(x, gain, bad)
@@ -388,10 +393,10 @@ class TestWrappersOnCpu:
         only and is never a fallback for another device."""
         args = {"x": torch.ones(4, 64), "gain": torch.ones(64), "dy": torch.ones(4, 64)}
         args = {k: t.to("meta") if on_meta in (k, "all") else t for k, t in args.items()}
-        before = rmsnorm.bwd_launches
+        before = telemetry.value("kernels.rmsnorm_bwd")
         with pytest.raises(ValueError):
             rmsnorm.rmsnorm_bwd(args["x"], args["gain"], args["dy"])
-        assert rmsnorm.bwd_launches == before
+        assert telemetry.value("kernels.rmsnorm_bwd") == before
 
     def test_gelu(self):
         """``gelu_tanh``'s gradient on CPU tensors is the plain backward.
@@ -408,7 +413,7 @@ class TestWrappersOnCpu:
 
     def test_cross_entropy(self):
         logits, targets = _logits_and_targets((4, 16), 256, 35)
-        before = (ce.launches, ce.bwd_launches)
+        before = _launches("cross_entropy")
         loss, lse = ce.cross_entropy_fwd(logits, targets)
         want_loss, want_lse = ce.cross_entropy_ref(logits, targets)
         assert torch.equal(loss, want_loss) and torch.equal(lse, want_lse)
@@ -420,14 +425,14 @@ class TestWrappersOnCpu:
         assert torch.equal(out, want_loss)
         out.backward()
         assert torch.equal(live.grad, want_d)
-        assert (ce.launches, ce.bwd_launches) == before
+        assert _launches("cross_entropy") == before
 
     def test_cross_entropy_bf16(self):
         """bf16 logits take the plain version too; ``dlogits`` come back
         in bf16."""
         logits, targets = _logits_and_targets((4, 16), 256, 37)
         logits = logits.bfloat16()
-        before = (ce.launches, ce.bwd_launches)
+        before = _launches("cross_entropy")
         loss, lse = ce.cross_entropy_fwd(logits, targets)
         want_loss, want_lse = ce.cross_entropy_ref(logits, targets)
         assert torch.equal(loss, want_loss) and torch.equal(lse, want_lse)
@@ -435,7 +440,7 @@ class TestWrappersOnCpu:
         got = ce.cross_entropy_bwd(logits, targets, lse, g)
         assert got.dtype == torch.bfloat16
         assert torch.equal(got, ce.cross_entropy_bwd_ref(logits, targets, lse, g))
-        assert (ce.launches, ce.bwd_launches) == before
+        assert _launches("cross_entropy") == before
 
     @pytest.mark.parametrize(
         "logits, targets",

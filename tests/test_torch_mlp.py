@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from operator_forge.tpu import demo as jdemo
-from operator_forge_torch import demo
+from operator_forge_torch import demo, telemetry
 from operator_forge_torch.kernels import bf16_ulp, gelu, within_floored_ulps
 from operator_forge_torch.kernels import mlp as mlp_mod
 
@@ -23,6 +23,11 @@ BF16 = torch.bfloat16
 # widths, a depth of 1, and a 2-D x
 SHAPES = [((8, 64), 128, 512, 128), ((8, 16), 64, 128, 64), ((1, 91), 72, 200, 72),
           ((3, 5), 1, 24, 7), ((91,), 72, 200, 40)]
+
+
+def _launches(wrapper: str) -> tuple:
+    """The launch counters of ``wrapper`` and of its backward."""
+    return telemetry.value(f"kernels.{wrapper}"), telemetry.value(f"kernels.{wrapper}_bwd")
 
 
 def _normal(shape, seed, scale=1.0):
@@ -112,24 +117,24 @@ class TestWrappersOnCpu:
 
     def test_matmul_gelu(self):
         x, w1 = _bf16(_normal((2, 91, 72), 30)), _bf16(_normal((72, 200), 31, 0.3))
-        before = (mlp_mod.launches, mlp_mod.bwd_launches)
+        before = _launches("matmul_gelu")
         h, h_pre = mlp_mod.matmul_gelu(x, w1)
         want_h, want_pre = mlp_mod.matmul_gelu_ref(x, w1)
         assert torch.equal(h, want_h) and torch.equal(h_pre, want_pre)
         assert torch.equal(h_pre, x @ w1) and torch.equal(h, gelu.gelu_tanh_ref(x @ w1))
         served, none = mlp_mod.matmul_gelu(x, w1, keep_pre=False)
         assert none is None and torch.equal(served, want_h)
-        assert (mlp_mod.launches, mlp_mod.bwd_launches) == before
+        assert _launches("matmul_gelu") == before
 
     def test_matmul_gelu_bwd(self):
         dy, w2 = _bf16(_normal((2, 91, 40), 32)), _bf16(_normal((200, 40), 33, 0.3))
         h_pre = _bf16(_normal((2, 91, 200), 34, 3.0))
-        before = (mlp_mod.launches, mlp_mod.bwd_launches)
+        before = _launches("matmul_gelu")
         got = mlp_mod.matmul_gelu_bwd(dy, w2, h_pre)
         assert got.dtype == BF16
         assert torch.equal(got, mlp_mod.matmul_gelu_bwd_ref(dy, w2, h_pre))
         assert torch.equal(got, gelu.gelu_tanh_bwd_ref(h_pre, dy @ w2.t()))
-        assert (mlp_mod.launches, mlp_mod.bwd_launches) == before
+        assert _launches("matmul_gelu") == before
 
     @pytest.mark.parametrize(
         "x, w1",
@@ -142,10 +147,10 @@ class TestWrappersOnCpu:
         ids=["x_dtype", "w1_dtype", "depth", "w1_dims", "empty", "device"],
     )
     def test_matmul_gelu_rejects(self, x, w1):
-        before = mlp_mod.launches
+        before = telemetry.value("kernels.matmul_gelu")
         with pytest.raises(ValueError):
             mlp_mod.matmul_gelu(x, w1)
-        assert mlp_mod.launches == before
+        assert telemetry.value("kernels.matmul_gelu") == before
 
     @pytest.mark.parametrize(
         "dy, w2, h_pre",
@@ -159,18 +164,18 @@ class TestWrappersOnCpu:
         ids=["dy_dtype", "h_pre_dtype", "depth", "width", "rows", "device"],
     )
     def test_matmul_gelu_bwd_rejects(self, dy, w2, h_pre):
-        before = mlp_mod.bwd_launches
+        before = telemetry.value("kernels.matmul_gelu_bwd")
         with pytest.raises(ValueError):
             mlp_mod.matmul_gelu_bwd(dy, w2, h_pre)
-        assert mlp_mod.bwd_launches == before
+        assert telemetry.value("kernels.matmul_gelu_bwd") == before
 
     def test_function_counts_no_launch_on_cpu(self):
         arrays = _inputs((4, 16), 64, 128, 64, seed=40)
         live = [_bf16(a).requires_grad_() for a in arrays]
-        before = (mlp_mod.launches, mlp_mod.bwd_launches)
+        before = _launches("matmul_gelu")
         mlp_mod.mlp(*live).float().sum().backward()
         assert all(t.grad is not None for t in live)
-        assert (mlp_mod.launches, mlp_mod.bwd_launches) == before
+        assert _launches("matmul_gelu") == before
 
 
 @pytest.mark.parametrize("grad", [True, False])

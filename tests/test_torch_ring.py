@@ -30,7 +30,7 @@ from jax.sharding import Mesh
 
 import torch_ranks
 from operator_forge.tpu import demo as jdemo
-from operator_forge_torch import demo, ranks
+from operator_forge_torch import demo, ranks, telemetry
 from operator_forge_torch.entry import dryrun_multichip
 from operator_forge_torch.kernels import bf16_ulp
 from operator_forge_torch.kernels import ring_attention as ra
@@ -133,9 +133,9 @@ def test_ring_step_on_cpu_updates_the_carry_in_place():
     arrays, my, origin = _step_inputs("earlier")
     q, k, v, m, num, den = (torch.from_numpy(a.copy()) for a in arrays)
     want = ra.ring_step_ref(q, k, v, m, num, den, my, origin)
-    before = ra.launches
+    before = telemetry.value("kernels.ring_attention_step")
     out = ra.ring_step(q, k, v, m, num, den, my, origin)
-    assert ra.launches == before  # the plain version is no launch
+    assert telemetry.value("kernels.ring_attention_step") == before  # the plain version is no launch
     assert all(o is t for o, t in zip(out, (m, num, den)))
     assert all(torch.equal(t, w) for t, w in zip((m, num, den), want))
 
@@ -216,9 +216,9 @@ def test_ring_step_bwd_on_cpu_updates_the_accumulators_in_place():
     for my, origin in ((2, 1), (2, 3)):
         accumulators = [t.clone() for t in (dq, dk, dv)]
         want = ra.ring_step_bwd_ref(q, k, v, dout, m, den, big_d, my, origin, *accumulators)
-        before = ra.bwd_launches
+        before = telemetry.value("kernels.ring_attention_step_bwd")
         out = ra.ring_step_bwd(q, k, v, dout, m, den, big_d, my, origin, *accumulators)
-        assert ra.bwd_launches == before
+        assert telemetry.value("kernels.ring_attention_step_bwd") == before
         assert all(o is t for o, t in zip(out, accumulators))
         assert all(torch.equal(t, w) for t, w in zip(accumulators, want))
         if origin > my:
@@ -242,10 +242,10 @@ def test_ring_step_bwd_rejects_what_the_kernel_does_not_take(name):
         args[8] = -1
     elif name == "device":
         args[9] = args[9].to("meta")
-    before = ra.bwd_launches
+    before = telemetry.value("kernels.ring_attention_step_bwd")
     with pytest.raises(ValueError):
         ra.ring_step_bwd(*args)
-    assert ra.bwd_launches == before
+    assert telemetry.value("kernels.ring_attention_step_bwd") == before
 
 
 def _bad(name):
@@ -282,10 +282,10 @@ def test_ring_step_rejects_a_device_neither_cpu_nor_cuda(on_meta):
     names = ("q", "k_blk", "v_blk", "m", "num", "den")
     args = _bad("none")[:6]
     args = [t.to("meta") if on_meta in (n, "all") else t for n, t in zip(names, args)]
-    before = ra.launches
+    before = telemetry.value("kernels.ring_attention_step")
     with pytest.raises(ValueError):
         ra.ring_step(*args, 0, 0)
-    assert ra.launches == before
+    assert telemetry.value("kernels.ring_attention_step") == before
 
 
 def test_replayed_ring_schedule_matches_dense():

@@ -11,7 +11,6 @@ so gradients agree to a few bf16 ulps of their magnitude, not to f32):
   of |p| for the rounding of ``p - lr * g``.
 """
 
-import json
 import os
 import subprocess
 import sys
@@ -22,7 +21,7 @@ import pytest
 import torch
 
 from operator_forge.tpu import demo as jdemo
-from operator_forge_torch import demo, profile_window, trace_step
+from operator_forge_torch import demo
 from operator_forge_torch.entry import train_entry
 from operator_forge_torch.kernels import attention, bf16_ulp, gelu, rmsnorm, step_tolerance
 from operator_forge_torch.kernels import cross_entropy as ce
@@ -204,47 +203,6 @@ def test_train_entry_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_entry()
-
-
-def test_trace_step_without_a_card_raises(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        trace_step.main()
-
-
-def test_profile_window_without_a_card_raises(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        profile_window.main(["--sessions", "1"])
-
-
-def test_profile_window_calls_run_on_the_cpu():
-    """The probe's one-kernel calls take valid inputs: on CPU tensors they
-    run the plain versions, and a later block leaves the accumulators."""
-    calls = profile_window.one_kernel_calls("cpu")
-    dq, dk, dv = calls["ring_step_bwd_later"]()
-    assert all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
-    dx, dgain = calls["rmsnorm_bwd"]()
-    assert dx.shape == (512, 128) and dgain.shape == (128,)
-
-
-def test_profile_window_reads_a_trace(tmp_path):
-    """Offsets from an exported trace: the launch call after the window
-    opens, and its kernel after the launch call (here 30 us and -5 us, the
-    kernel's start as converted before the launch's)."""
-    trace = tmp_path / "trace.json"
-    trace.write_text(json.dumps({"traceEvents": [
-        {"ph": "i", "name": "Iteration Start: PyTorch Profiler", "ts": 100.0},
-        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 130.0, "dur": 4.0},
-        {"ph": "X", "cat": "kernel", "name": "k", "ts": 125.0, "dur": 2.0},
-    ]}))
-    assert profile_window.offsets_us(str(trace)) == (30.0, -5.0)
-    trace.write_text(json.dumps({"traceEvents": []}))
-    assert profile_window.offsets_us(str(trace)) is None
-
-
-def test_busy_time_is_the_union_of_kernel_intervals():
-    assert trace_step._busy_us([(5, 7), (0, 2), (1, 3), (6, 6.5)]) == 5
 
 
 @pytest.mark.parametrize("name", ["entry", "train_entry"])
