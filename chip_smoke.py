@@ -7,7 +7,8 @@ nvcc:
 
 (``python3 chip_smoke.py --second-paths`` prints the card and the second
 paths' rows of (c) with the ring's wide rows alone, a failed check on its
-row's line, and exits 0.)
+row's line, and exits 0; ``--cell-shapes`` prints the card and (h'')'s
+rows alone.)
 
 Phases, each of which exits non-zero on a failed check:
   (a) print the card's name and power limit; pin the matmul numerics to
@@ -86,6 +87,12 @@ Phases, each of which exits non-zero on a failed check:
       launch counters see each capture and no replay; one replay's
       kernels, counted by name under the profiler, are the eager path's
       launches; print the host medians beside the eager ones;
+  (h'') attention's backward at the benchmark's long rows (``CELL_SHAPES``:
+      Pythia-1.4B's [4, 2048, 16, 128], GPT-2 medium's [16, 1024, 16, 64]),
+      checked and timed as (c)'s rows, beside cuDNN's backward, with its
+      first launch's device time apart under the profiler (after (h')'s
+      profiled calls: the profiler sets its clock at its first session) and
+      that launch's bound, on a ``cell_shapes`` line with no launches;
   (i) print the ring phases' launches by block, mask and head width, then
       ``{"kernels": [...]}``, launches summed over (d), (e), (e'), (g) and
       (h) (not (h'), whose replays only the profiler counts; for the
@@ -799,6 +806,54 @@ def second_path_rows() -> list[dict]:
         rows += [attention_row(qkv, n_heads, f"causal_attention_{name}", reps=10),
                  attention_bwd_row(qkv, dout, n_heads, f"causal_attention_bwd_{name}", reps=10)]
     return rows + [ring_block_row("ring_attention_step_2048", (1, 4, 2048, 32), "earlier", g)]
+
+
+# the benchmark's long rows: Pythia-1.4B's and GPT-2 medium's attention
+# backward at their cells' [batch, seq, heads, head_dim]
+CELL_SHAPES = (("pythia_1_4b", (4, 2048, 16, 128)), ("gpt2_medium", (16, 1024, 16, 64)))
+
+
+def kernel_device_ms(call, kernel: str, calls: int = 10) -> float | None:
+    """Mean device ms that a call of ``call`` spends in the kernel named
+    ``kernel`` (one launch a call), from the profiler's CUDA activities; None
+    where it records another count.  Run after every other profiled phase:
+    the profiler's clock conversion is set at a process's first session."""
+    call()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    found = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and f"{kernel}<" in e.name]
+    return sum(found) / calls / 1e3 if len(found) == calls else None
+
+
+def cell_rows() -> list[dict]:
+    """Attention's backward at the benchmark's long rows, checked and timed
+    as the main path's rows are, with its first launch's device time apart
+    (``dq_device_ms``) beside that launch's bound: its three causal products
+    (S, dP, dQ) at the bf16 rate."""
+    g = torch.Generator().manual_seed(37)
+    rows = []
+    for name, (b, s, n_heads, hd) in CELL_SHAPES:
+        qkv = torch.randn((b, s, 3 * n_heads * hd), generator=g).cuda().bfloat16()
+        dout = torch.randn((b, s, n_heads * hd), generator=g).cuda().bfloat16()
+        row = attention_bwd_row(qkv, dout, n_heads, f"causal_attention_bwd_{name}", reps=10)
+        # the call's dQ takes the long-row design: its counter moves by one
+        before = telemetry.value("kernels.causal_attention_bwd.rows64")
+        row["fn"]()
+        if telemetry.value("kernels.causal_attention_bwd.rows64") != before + 1:
+            fail(f"{row['name']}: dQ did not take the long-row design")
+        row["fields"].update(
+            rows64=True,
+            dq_device_ms=kernel_device_ms(row["fn"], "causal_attention_bwd_dq_kernel"),
+            dq_bound_ms=3 * 2 * hd * b * n_heads * s * (s + 1) // 2 / BF16_FLOP_PER_S * 1e3)
+        rows.append(row)
+    return rows
 
 
 def ring_step_f64(q, k, v, m, num, den, my: int, origin: int) -> tuple:
@@ -1599,6 +1654,11 @@ def main() -> None:
         fail("no CUDA device is available")
     t_start = time.perf_counter()
     phase_card()
+    if sys.argv[1:] == ["--cell-shapes"]:
+        # attention's backward at the benchmark's long rows alone
+        phase_build()
+        print(json.dumps({"cell_shapes": measure(cell_rows())}))
+        return
     if sys.argv[1:] == ["--second-paths"]:
         # the second paths' rows alone, checked and timed, a failed check
         # said on its line: copied into another tree (with its kernels'
@@ -1622,6 +1682,11 @@ def main() -> None:
             phase_graph(config)
         finally:
             dist.destroy_process_group()
+    # the main path launches none of these at these shapes: their line says so
+    cells = measure(cell_rows())
+    for line in cells:
+        line["launches"] = 0
+    print(json.dumps({"cell_shapes": cells}))
     total = {name: sum(path[name] for path in paths) for name in COUNTERS}
     total["cross_entropy"] += total.pop("cross_entropy_bwd")
     # the rows at the wide step's shapes: that phase's launches

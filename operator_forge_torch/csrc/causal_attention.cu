@@ -26,22 +26,24 @@
 //   dS_bf = bf16(where(mask, dS, 0) / sqrt(f32(head_dim))), a division
 //   dQ = bf16(dS_bf K),  dK = bf16(dS_bf^T Q)
 //
-// Bound on an H100 SXM at DemoConfig() (batch 8, seq 64, 4 heads of 32):
+// Bound on an H100 SXM.  At DemoConfig() (batch 8, seq 64, 4 heads of 32)
 // the forward reads the QKV product once (393,216 B) and writes the output
 // once (131,072 B), 0.52 MB: 0.16 us at 3.35 TB/s, against 8.5 MFLOP of
 // causal products, 0.01 us at the bf16 tensor rate.  The backward reads
 // QKV and dO and writes dQKV, 0.92 MB: 0.27 us, against 21 MFLOP of five
 // causal products (the score recompute, dP, dV, dQ, dK), 0.02 us.  Both lie
-// far below one launch; what is left to win is latency: of the loads, of
-// the chains of products, and of the steps between them.
+// far below one launch; what is left to win there is latency.  At the
+// benchmark's long rows the products bound it: Pythia-1.4B's [4, 2048, 16,
+// 128] backward is 172 GFLOP, 0.17 ms (its first launch's three products,
+// S, dP and dQ, 0.10 ms), GPT-2 medium's [16, 1024, 16, 64] 0.087 ms (dQ's
+// 0.052), each against 235 MB of QKV, dO and dQKV, 0.07 ms.
 //
-// Design.  Every product is an mma.sync.aligned.m16n8k16 bf16 -> f32 on
-// the tensor cores.  A block is 4 warps over one tile of 16 rows (query
-// rows in the forward and the backward's first launch, key rows in its
-// second) of one (head, batch): 128 blocks at DemoConfig(), about one per
-// SM.  wgmma is not the tool at these shapes: its 64-row tile per (batch,
-// head) would keep 32 of 132 SMs busy, where 16-row tiles keep 128 busy,
-// and a 16-row tile is mma.sync's.  Each of the 4 warps takes 16 keys of
+// Design.  Products are mma.sync.aligned.m16n8k16 bf16 -> f32 on the
+// tensor cores, but for the backward's first launch on long rows (below).
+// A block is 4 warps over one tile of 16 rows (query rows in the forward
+// and the backward's first launch, key rows in its second) of one (head,
+// batch): 128 blocks at DemoConfig(), about one per SM, where 64-row tiles
+// would keep 32 of 132 SMs busy.  Each of the 4 warps takes 16 keys of
 // every 64 (or, in the second launch, every 4th query tile), so that 4
 // warps share an SM's latency; their partial row maxima, sums and
 // products are combined through shared memory in warp order.  q, k, v and
@@ -62,11 +64,21 @@
 //
 // The backward is two launches with no atomics and no [b, h, s, s]
 // scratch, so its sums run in a fixed order and repeat bit for bit.  The
-// first, per query tile, recomputes the scores and the softmax with the
-// forward's own code, computes dP, D and dS_bf in registers, writes dQ and
-// each row's max, sum and D (three f32 [b, h, s] arrays).  The second, per
-// key tile, walks the query tiles in ascending order (a warp's next tile
-// of q and dO in flight while the current one is used), recomputes the
+// first, per query tile, recomputes the scores and the softmax, computes
+// dP, D and dS_bf in registers, writes dQ and each row's max, sum and D
+// (three f32 [b, h, s] arrays).  It has two designs of one algorithm,
+// chosen by long_rows from the row, the head and the grid: rows of at most
+// one chunk of 64 keys, heads of at most 32 columns or not a multiple of 8
+// (or bases not 16-byte aligned), or a grid of 64-row tiles below one
+// block for every two SMs, take the forward's 16-row tiles and its code,
+// spilling each row's scores and dP to shared memory (128 KB a block at
+// Pythia's 2048 keys); the rest take 64-row tiles, one warp for every 16
+// whole rows, that stream K and V twice (the statistics with the sum and D
+// carried online, then dQ) and recompute the scores rather than keep them,
+// on wgmma with TMA (its section below: 0.77 ms at Pythia's shape and
+// 0.47 at GPT-2's, against 3.97 and 2.23 for 16-row tiles).  The second,
+// per key tile, walks the query tiles in ascending order (a warp's next
+// tile of q and dO in flight while the current one is used), recomputes the
 // scores and dP with the same operands in the same roles and k-order, so
 // y = exp(score - max) / sum comes out with the first launch's bits,
 // stages its p and dS_bf tile in shared memory to transpose them, and sums
@@ -77,6 +89,7 @@
 // than 65535 batches or heads) go to the stream path, whose section below
 // says how it is built; causal_attention_tiles says which path a shape takes.
 
+#include <cuda.h>  // CUtensorMap and its enums; the driver is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -1512,6 +1525,509 @@ attention_stream_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict
   store_rows<kO>(dv, dst + 2 * d, stride, k0 + kn - wk0, hd - o0);
 }
 
+// ---- wgmma: a warpgroup's 64-row products, operands in shared memory ----
+//
+// A tile of wgmma operands is bf16 [kHdp / 64][rows][64]: halves of 64
+// columns, each row 128 bytes with its 16-byte units swizzled (unit u of
+// row r at u ^ (r & 7)), 1024-byte aligned.  The same tile of K serves
+// S = Q K^T (K-major: 8-row groups 1024 bytes apart) and dQ += dS K
+// (MN-major: the keys' 8-row groups 1024 bytes apart, the column halves
+// rows * 128 bytes apart).  In a warpgroup's accumulator warp w holds rows
+// [16 w, 16 w + 16) in mma.sync's C fragment, n-tile j at d[4 j, 4 j + 4),
+// and its A fragment in registers is mma.sync's: the elementwise code is
+// the mma.sync path's.
+
+// d (+)= A B^T, m64n64k16: A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A B, m64n64k16: A in registers (each warp's 16 rows as mma.sync's A
+// fragment), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A B, m64n128k16: A in registers (each warp's 16 rows as mma.sync's A
+// fragment), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// until at most N committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// the compiler may not move reads of a wgmma's accumulator above its wait
+template <int kN>
+__device__ __forceinline__ void wg_keep(float (&d)[kN][4]) {
+#pragma unroll
+  for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[nt][i])::"memory");
+}
+
+// kN n-tiles of C fragments as one wgmma accumulator, register for register
+template <int kN>
+__device__ __forceinline__ float (&flat(float (&d)[kN][4]))[4 * kN] {
+  return *reinterpret_cast<float(*)[4 * kN]>(&d[0][0]);
+}
+
+// the descriptor of a swizzled tile at p: leading and stride byte offsets
+__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lead, uint32_t stride) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
+         ((uint64_t)(stride >> 4) << 32) | (1ull << 62);
+}
+
+// ---- TMA: tiles copied by the card's copy engine, behind mbarriers ----
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// the barrier's one arrival, and the bytes its copies bring
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// a box of `map` at the coordinates c (innermost first) into dst, counted on bar
+template <int kDims>
+__device__ __forceinline__ void tma_load(bf16* dst, const CUtensorMap& map, const int (&c)[kDims],
+                                         uint64_t* bar) {
+  const uint64_t at = reinterpret_cast<uint64_t>(&map);
+  if constexpr (kDims == 5)
+    asm volatile(
+        "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(smem_u32(dst)),
+        "l"(at), "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]), "r"(c[4]), "r"(smem_u32(bar))
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+        "l"(at), "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]), "r"(smem_u32(bar))
+        : "memory");
+}
+
+// Tensor maps of qkv [b, s, 3, h, head_dim] and dO [b, s, h, head_dim],
+// boxes of 64 columns by 64 rows of one head, 128-byte swizzled: the
+// swizzled tiles above.  Columns past head_dim and rows past s read as 0.
+struct TensorMaps {
+  CUtensorMap qkv, dout;
+};
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// needs head_dim a multiple of 8 and 16-byte aligned bases (`vec`)
+cudaError_t tensor_maps(TensorMaps* maps, const bf16* qkv, const bf16* dout, int b, int s,
+                        int n_heads, int hd) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t row = (cuuint64_t)hd * sizeof(bf16), d = row * n_heads;
+  const cuuint64_t qkv_dims[5] = {(cuuint64_t)hd, (cuuint64_t)n_heads, 3, (cuuint64_t)s,
+                                  (cuuint64_t)b};
+  const cuuint64_t qkv_strides[4] = {row, d, 3 * d, 3 * d * s};
+  const cuuint64_t dout_dims[4] = {(cuuint64_t)hd, (cuuint64_t)n_heads, (cuuint64_t)s,
+                                   (cuuint64_t)b};
+  const cuuint64_t dout_strides[3] = {row, d, d * s};
+  const cuuint32_t qkv_box[5] = {64, 1, 1, kSChunk, 1}, dout_box[4] = {64, 1, kSChunk, 1};
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  auto one = [&](CUtensorMap* map, const bf16* base, cuuint32_t rank, const cuuint64_t* dims,
+                 const cuuint64_t* strides, const cuuint32_t* box) {
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<bf16*>(base), dims,
+                  strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  };
+  if (!one(&maps->qkv, qkv, 5, qkv_dims, qkv_strides, qkv_box) ||
+      !one(&maps->dout, dout, 4, dout_dims, dout_strides, dout_box))
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// acc = A B^T over kHdp: A and B tiles of 64 rows; k-steps ascending from
+// zero, as mma.sync's
+template <int kHdp>
+__device__ __forceinline__ void wg_abt(float (&acc)[8][4], const bf16* a, const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < kHdp; kk += 16) {
+    const int at = (kk >> 6) * kSChunk * 64 + (kk & 63);
+    wgmma_ss_n64(flat(acc), wg_desc(a + at, 16, 1024), wg_desc(b + at, 16, 1024), kk > 0);
+  }
+}
+
+// acc += A B over the chunk's 64 keys: A (64 rows x 64 keys) in registers,
+// four k-steps; B the chunk's tile, MN-major
+template <int kHdp>
+__device__ __forceinline__ void wg_ab(float (&acc)[kHdp / 8][4], const uint32_t (&a)[4][4],
+                                      const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t desc = wg_desc(b + kk * 16 * 64, kSChunk * 128, 1024);
+    if constexpr (kHdp == 128)
+      wgmma_rs_n128(flat(acc), a[kk], desc);
+    else
+      wgmma_rs_n64(flat(acc), a[kk], desc);
+  }
+}
+
+// ---- the tiles path's dQ on long rows: 64-row tiles, two passes --------
+//
+// The backward's first launch where a row has more than one chunk of keys,
+// the head is one of 64 or 128 columns that TMA can read (head_dim a
+// multiple of 8, 16-byte aligned bases) and the grid of 64-row tiles fills
+// half the SMs (long_rows below).  A block takes 64 query rows of one
+// (head, batch): one warpgroup, each warp owning 16 whole rows, so a row's
+// max, sum, D and dQ never leave its warp's registers.  Q and dO stay in
+// shared memory; K and V stream through a ring of two chunks of 64 keys,
+// the next chunk's copy in flight while one is used.  Nothing in shared
+// memory grows with the row: 97 KB a block at heads of 128, two blocks an
+// SM (49 KB, three, at 64).  Two passes over the keys, each product from
+// the same operands in the same k-order as the second launch's mma.sync, so
+// both passes and the second launch see the same bits of every score and
+// dP (wgmma's products equal mma.sync's bit for bit, as checked on an H100):
+//   1. S = Q K^T and dP = bf16(dO V^T); the row's running max m; the sum
+//      l = sum exp(score - m) and D~ = sum exp(score - m) dP, both rescaled
+//      by exp(m_old - m) when the max grows; at the end D = D~ / l, an
+//      IEEE division.  These are the 16-row design's sums in another f32
+//      order; the max is the same bits.
+//   2. S and dP again; y = exp(score - m) / l from the final m and l only;
+//      dS_bf = bf16(where(mask, y (dP - D), 0) / sqrt(head_dim)), repacked
+//      from the C fragments into the A fragment of dQ += dS_bf K.
+// Five products a pair the mask leaves, all on wgmma: S and dP from
+// swizzled tiles that TMA fills behind one mbarrier a slot, the scores'
+// work overlapping dP's product, and dQ's product left in flight while the
+// next chunk's S and dP are issued.  The grid runs over (head, batch,
+// tile), the tiles last and heaviest first.
+
+// x rounded to bf16 in place, two values a conversion
+template <int kN>
+__device__ __forceinline__ void round_pairs(float (&x)[kN][4]) {
+#pragma unroll
+  for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t u = pack(x[nt][2 * h], x[nt][2 * h + 1]);
+      x[nt][2 * h] = lo_of(u);
+      x[nt][2 * h + 1] = hi_of(u);
+    }
+}
+
+// divide's quotients, its range check taken in four independent chains
+// rather than one chain through every value
+template <int kN>
+__device__ __forceinline__ void divide4(float (&x)[kN][4], const float (&b)[2],
+                                        const float (&inv)[2]) {
+  bool fast[4] = {true, true, true, true};
+#pragma unroll
+  for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) fast[i] = fast[i] & quotient_in_range(x[nt][i]);
+  if ((fast[0] & fast[1]) & (fast[2] & fast[3])) {
+#pragma unroll
+    for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[nt][i] = div_fast(x[nt][i], b[i >> 1], inv[i >> 1]);
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        x[nt][i] = quotient_in_range(x[nt][i]) ? div_fast(x[nt][i], b[i >> 1], inv[i >> 1])
+                                               : __fdiv_rn(x[nt][i], b[i >> 1]);
+  }
+}
+
+// x /= sqrt(head_dim): where the root is a power of two, a product by its
+// inverse, which is the same correctly rounded quotient
+template <int kN>
+__device__ __forceinline__ void by_root(float (&x)[kN][4], const Root& root, bool pow2) {
+  if (pow2) {
+#pragma unroll
+    for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[nt][i] *= root.inv[0];
+  } else {
+    divide4(x, root.root, root.inv);
+  }
+}
+
+// as stream_scores, with the above
+template <int kN>
+__device__ __forceinline__ void long_scores(float (&s)[kN][4], int r0, int key0, const Root& root,
+                                            bool pow2) {
+  round_pairs(s);
+  by_root(s, root, pow2);
+  if (key0 + 8 * kN - 1 > r0) {
+#pragma unroll
+    for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (key0 + 8 * nt + frag_col(i) > r0 + frag_row(i)) s[nt][i] = kMasked;
+  }
+}
+
+// as stream_grad_scores, with the above
+template <int kN>
+__device__ __forceinline__ void long_grad_scores(float (&dp)[kN][4], const float (&y)[kN][4],
+                                                 const float (&big_d)[2], int r0, int key0,
+                                                 const Root& root, bool pow2) {
+  const bool near = key0 + 8 * kN - 1 > r0;
+#pragma unroll
+  for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      dp[nt][i] = !near || key0 + 8 * nt + frag_col(i) <= r0 + frag_row(i)
+                      ? y[nt][i] * (dp[nt][i] - big_d[i >> 1]) : 0.0f;
+  by_root(dp, root, pow2);
+}
+
+// the long-row design's ring: chunks of keys in flight, each K then V
+constexpr int kLongStages = 2;
+
+// Q and dO, then the ring, 64 rows a tile, swizzled; 1 KB to align them,
+// then the barriers: Q and dO's, then a slot's each
+template <int kHdp>
+size_t long_dq_smem() {
+  return (size_t)(2 + 2 * kLongStages) * kSChunk * kHdp * sizeof(bf16) + 1024 +
+         (kLongStages + 1) * sizeof(uint64_t);
+}
+
+template <int kHdp>
+__global__ void __launch_bounds__(128)
+causal_attention_bwd_dq_kernel(bf16* __restrict__ dqkv, float* __restrict__ stats, int s,
+                               int n_heads, int hd, const __grid_constant__ TensorMaps maps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kTileEls = kSChunk * kHdp;  // a tile of 64 rows
+  bf16* qs = reinterpret_cast<bf16*>(smem + ((1024 - (smem_u32(smem) & 1023)) & 1023));
+  bf16* dos = qs + kTileEls;    // 64 rows of Q, then of dO
+  bf16* ring = dos + kTileEls;  // [kLongStages][K, V][64 rows]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + kLongStages * 2 * kTileEls);
+
+  const int warp = threadIdx.x >> 5;
+  const int head = blockIdx.x, batch = blockIdx.y, tile = gridDim.z - 1 - blockIdx.z;
+  const int d = n_heads * hd;
+  const size_t stride = 3 * (size_t)d;
+  const int q0 = tile * kSChunk, wq0 = q0 + 16 * warp;  // the tile's, the warp's first row
+  // every chunk has keys that the tile's rows see
+  const int chunks = (min(q0 + kSChunk, s) + kSChunk - 1) / kSChunk, stages = 2 * chunks;
+  const Root root = root_of(hd);
+  const bool pow2 = (__float_as_uint(root.root[0]) & 0x7fffffu) == 0;  // heads of 4^k
+
+  // stage t: chunk t mod chunks (pass 1, then pass 2) into slot t mod
+  // kLongStages; one thread asks TMA for K's and V's tiles, counted on the
+  // slot's barrier
+  auto issue = [&](int t) {
+    if (threadIdx.x != 0 || t >= stages) return;
+    const int key0 = (t < chunks ? t : t - chunks) * kSChunk;
+    bf16* ks = ring + (t % kLongStages) * 2 * kTileEls;
+    uint64_t* bar = bars + 1 + t % kLongStages;
+    bar_expect(bar, 2 * kTileEls * sizeof(bf16));
+#pragma unroll
+    for (int half = 0; half < kHdp / 64; ++half) {
+      tma_load(ks + half * kSChunk * 64, maps.qkv, {64 * half, head, 1, key0, batch}, bar);
+      tma_load(ks + kTileEls + half * kSChunk * 64, maps.qkv, {64 * half, head, 2, key0, batch},
+               bar);
+    }
+  };
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j <= kLongStages; ++j) bar_init(bars + j);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    bar_expect(bars, 2 * kTileEls * sizeof(bf16));
+#pragma unroll
+    for (int half = 0; half < kHdp / 64; ++half) {
+      tma_load(qs + half * kSChunk * 64, maps.qkv, {64 * half, head, 0, q0, batch}, bars);
+      tma_load(dos + half * kSChunk * 64, maps.dout, {64 * half, head, q0, batch}, bars);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kLongStages - 1; ++t) issue(t);
+  bar_wait(bars, 0);
+
+  float sc[8][4], dp[8][4], dq[kHdp / 8][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, big_d[2] = {0.0f, 0.0f}, inv_l[2];
+  zero(dq);
+  for (int t = 0; t < stages; ++t) {
+    bar_wait(bars + 1 + t % kLongStages, (t / kLongStages) & 1);  // stage t is in
+    if (t == chunks) {  // pass 1 is done: the row's sum and D
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] = quad_sum(l[h]);
+        inv_l[h] = __frcp_rn(l[h]);
+        big_d[h] = __fdiv_rn(quad_sum(big_d[h]), l[h]);
+      }
+    }
+    const int key0 = (t < chunks ? t : t - chunks) * kSChunk;
+    const bf16* ks = ring + (t % kLongStages) * 2 * kTileEls;
+    // S, then dP, queued behind the last chunk's dQ product; the scores'
+    // work runs while dP's product does
+    wg_fence();
+    wg_abt<kHdp>(sc, qs, ks);
+    wg_commit();
+    wg_abt<kHdp>(dp, dos, ks + kTileEls);
+    wg_commit();
+    wg_wait<1>();  // S is in, and every group before it: the last chunk's dQ
+    wg_keep(sc);
+    // Stage t + kLongStages - 1 refills the slot of chunk t - 1, whose
+    // products (S, dP and dQ) every warp has now waited for: TMA may not
+    // write a wgmma's operand before that wgmma's wait_group.
+    __syncthreads();
+    issue(t + kLongStages - 1);
+    long_scores(sc, wq0, key0, root, pow2);
+    if (t < chunks) {
+      float top[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) top[i >> 1] = fmaxf(top[i >> 1], sc[nt][i]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        top[h] = quad_max(top[h]);
+        if (top[h] > m[h]) {  // exp(-inf) is 0: the first chunk keeps nothing
+          const float r = expf(m[h] - top[h]);
+          l[h] *= r;
+          big_d[h] *= r;
+          m[h] = top[h];
+        }
+      }
+      exps(sc, m);  // exactly 0 where masked
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) l[i >> 1] += sc[nt][i];
+      wg_wait<0>();
+      wg_keep(dp);
+      round_pairs(dp);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) big_d[i >> 1] = fmaf(sc[nt][i], dp[nt][i], big_d[i >> 1]);
+    } else {
+      exps(sc, m);
+      divide4(sc, l, inv_l);  // y
+      wg_wait<0>();
+      wg_keep(dp);
+      round_pairs(dp);
+      long_grad_scores(dp, sc, big_d, wq0, key0, root, pow2);
+      uint32_t a[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) a_from_pair(a[kk], dp[2 * kk], dp[2 * kk + 1]);
+      wg_fence();
+      wg_ab<kHdp>(dq, a, ks);
+      wg_commit();  // waited for with the next chunk's S, or after the walk
+    }
+  }
+  wg_wait<0>();
+  wg_keep(dq);
+  if (wq0 >= s) return;  // the warp's rows lie past the sequence
+
+  store_rows<kHdp>(dq, dqkv + ((size_t)batch * s + wq0) * stride + (size_t)head * hd, stride,
+                   s - wq0, hd);
+  // the rows' statistics, [3][b][h][s]: max, sum, D
+  if ((lane_id() & 3) == 0) {
+    const size_t size = (size_t)gridDim.y * n_heads * s;
+    const size_t row0 = ((size_t)batch * n_heads + head) * s + wq0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = frag_row(2 * h);
+      if (wq0 + r < s) {
+        stats[row0 + r] = m[h];
+        stats[size + row0 + r] = l[h];
+        stats[2 * size + row0 + r] = big_d[h];
+      }
+    }
+  }
+}
+
 // Shared memory of the stream kernels, in bytes; with one column chunk
 // (kC >= kO) Q and dO, or K and V, stay, and no output tile is staged but V
 // (the two key groups' maxima, sums and D after them: 3 x 2 x 64 floats)
@@ -1551,7 +2067,7 @@ StreamGrid stream_grid(int b, int s, int n_heads, int nout) {
 
 // Two groups of warps a block where the grid has fewer than two blocks an
 // SM (kG in the kernels' comment).
-bool two_groups(long long blocks) {
+int sm_count() {
   static const int sms = [] {
     int device = 0, count = 0;
     if (cudaGetDevice(&device) != cudaSuccess ||
@@ -1559,8 +2075,10 @@ bool two_groups(long long blocks) {
       return 0;
     return count;
   }();
-  return blocks < 2LL * sms;
+  return sms;
 }
+
+bool two_groups(long long blocks) { return blocks < 2LL * sm_count(); }
 
 template <int kC, int kO, int kG>
 cudaError_t launch_stream_fwd_groups(const StreamGrid& grid, const bf16* qkv, bf16* out, int s,
@@ -1677,21 +2195,59 @@ cudaError_t launch_fwd(const bf16* qkv, bf16* out, int b, int s, int n_heads, in
   return cudaGetLastError();
 }
 
+// the two designs of the backward's first launch share a name, and are
+// told apart by their template arguments and their parameters
+using DqKernel = void (*)(const bf16*, const bf16*, bf16*, float*, int, int, int, bool);
+using LongDqKernel = void (*)(bf16*, float*, int, int, int, TensorMaps);
+
+// Whether the first launch takes the long-row design, given 16-byte aligned
+// bases: rows of more than one chunk of keys, heads that wgmma and TMA take
+// (padded to 64 or 128 columns, head_dim a multiple of 8), on a grid of
+// 64-row tiles of at least one block for every two SMs.  Below that the
+// 16-row tiles' grid, 4x larger, keeps more SMs at work (measured on the
+// card: the long-row design is 1.2-4.9x faster from 128 blocks up, 0.7-1.0x
+// at 32 blocks and fewer, either way at 64; PERF.md).
+bool long_rows(int b, int s, int n_heads, int head_dim) {
+  const long long blocks = (long long)(s + kSChunk - 1) / kSChunk * b * n_heads;
+  return s > kChunk && head_dim > 32 && head_dim % 8 == 0 && 2 * blocks >= sm_count();
+}
+
+template <int kHdp, bool kOne>
+cudaError_t launch_dq(const bf16* qkv, const bf16* dout, bf16* dqkv, float* stats, int b, int s,
+                      int n_heads, int hd, bool vec, cudaStream_t st) {
+  if constexpr (!kOne && kHdp >= 64) {
+    if (vec && long_rows(b, s, n_heads, hd)) {
+      TensorMaps maps{};
+      cudaError_t err = tensor_maps(&maps, qkv, dout, b, s, n_heads, hd);
+      if (err != cudaSuccess) return err;
+      const LongDqKernel kernel = causal_attention_bwd_dq_kernel<kHdp>;
+      err = allow_smem(kernel);
+      if (err != cudaSuccess) return err;
+      // the tiles last, heaviest first: the longest rows start in the first wave
+      const dim3 grid(n_heads, b, (s + kSChunk - 1) / kSChunk);
+      kernel<<<grid, 128, long_dq_smem<kHdp>(), st>>>(dqkv, stats, s, n_heads, hd, maps);
+      return cudaGetLastError();
+    }
+  }
+  const DqKernel kernel = causal_attention_bwd_dq_kernel<kHdp, kOne>;
+  const cudaError_t err = allow_smem(kernel);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s + kRows - 1) / kRows, n_heads, b);
+  kernel<<<grid, kThreads, bwd_dq_smem<kHdp, kOne>(s), st>>>(qkv, dout, dqkv, stats, s, n_heads,
+                                                              hd, vec);
+  return cudaGetLastError();
+}
+
 template <int kHdp, bool kOne>
 cudaError_t launch_bwd(const bf16* qkv, const bf16* dout, bf16* dqkv, float* stats, int b, int s,
                        int n_heads, int hd, cudaStream_t st) {
-  const size_t smem_dq = bwd_dq_smem<kHdp, kOne>(s), smem_dkv = bwd_dkv_smem<kHdp>();
-  cudaError_t err = allow_smem(causal_attention_bwd_dq_kernel<kHdp, kOne>);
+  const bool vec = hd % 8 == 0 && of::aligned16(qkv, dout, dqkv);
+  cudaError_t err = launch_dq<kHdp, kOne>(qkv, dout, dqkv, stats, b, s, n_heads, hd, vec, st);
   if (err != cudaSuccess) return err;
   err = allow_smem(causal_attention_bwd_dkv_kernel<kHdp>);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + kRows - 1) / kRows, n_heads, b);
-  const bool vec = hd % 8 == 0 && of::aligned16(qkv, dout, dqkv);
-  causal_attention_bwd_dq_kernel<kHdp, kOne><<<grid, kThreads, smem_dq, st>>>(
-      qkv, dout, dqkv, stats, s, n_heads, hd, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  causal_attention_bwd_dkv_kernel<kHdp><<<grid, kThreads, smem_dkv, st>>>(
+  causal_attention_bwd_dkv_kernel<kHdp><<<grid, kThreads, bwd_dkv_smem<kHdp>(), st>>>(
       qkv, dout, stats, dqkv, s, n_heads, hd, vec);
   return cudaGetLastError();
 }
@@ -1764,6 +2320,13 @@ const char* of_error_string(int status) {
 // 1 where the tiles path takes the shape, 0 where the stream path does.
 int causal_attention_tiles(int b, int s, int n_heads, int head_dim) {
   return valid(b, s, n_heads, head_dim) && tiles_take(b, s, n_heads, head_dim);
+}
+
+// 1 where the backward's first launch takes the long-row design (64-row
+// tiles, two passes) on 16-byte aligned bases, 0 where it takes 16-row
+// tiles or the stream path.
+int causal_attention_bwd_rows64(int b, int s, int n_heads, int head_dim) {
+  return causal_attention_tiles(b, s, n_heads, head_dim) && long_rows(b, s, n_heads, head_dim);
 }
 
 // qkv: bf16 [b, s, 3 * n_heads * head_dim], contiguous; out: bf16

@@ -11,8 +11,20 @@ y and z; else the stream path, 64-row tiles that stream the other side
 and the head in chunks, which takes any sequence, head width, batch and
 head count (``tiles`` says which).
 The backward takes that output's gradient and returns the gradient of the
-QKV product, with the cast points of JAX's autodiff of the same lines;
-``causal_attention`` ties the two together as an autograd ``Function``.
+QKV product, with the cast points of JAX's autodiff of the same lines, in
+two launches: dQ with each row's softmax statistics, then dK and dV.  On
+the tiles path dQ has two designs of one algorithm, chosen in the source
+by what the launch can see: rows of at most 64 keys, or a grid of 64-row
+tiles that would fill fewer than half the SMs, or heads of at most 32
+columns or not a multiple of 8, take 16-row tiles of four warps; longer rows
+take 64-row tiles, one warpgroup a tile, that stream K and V twice (the
+statistics, then dQ) and recompute the scores rather than keep them, on
+``wgmma`` and TMA (``rows64`` says which;
+``kernels.causal_attention_bwd.rows64`` counts those calls).  At
+Pythia-1.4B's ``[4, 2048, 16, 128]`` its five causal products bound it at
+0.17 ms at 989 TFLOP/s, GPT-2 medium's ``[16, 1024, 16, 64]`` at 0.087 ms.
+``causal_attention`` ties the forward and the backward together as an
+autograd ``Function``.
 """
 
 from __future__ import annotations
@@ -107,8 +119,9 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.causal_attention_bwd_bf16.restype = ctypes.c_int
-    lib.causal_attention_tiles.argtypes = [ctypes.c_int] * 4
-    lib.causal_attention_tiles.restype = ctypes.c_int
+    for entry in (lib.causal_attention_tiles, lib.causal_attention_bwd_rows64):
+        entry.argtypes = [ctypes.c_int] * 4
+        entry.restype = ctypes.c_int
     return lib
 
 
@@ -117,6 +130,16 @@ def tiles(b: int, s: int, n_heads: int, head_dim: int) -> bool:
     of the main path's shapes, rather than the stream path (builds the
     kernels)."""
     return bool(_library().causal_attention_tiles(b, s, n_heads, head_dim))
+
+
+@functools.cache
+def rows64(b: int, s: int, n_heads: int, head_dim: int) -> bool:
+    """Whether the backward's first launch takes 64-row tiles (rows of more
+    than one chunk of 64 keys, heads padded to 64 or 128 of a multiple of 8
+    columns, a 64-row grid that fills half the SMs) on 16-byte aligned
+    tensors, rather than 16-row tiles or the stream path (builds the
+    kernels)."""
+    return bool(_library().causal_attention_bwd_rows64(b, s, n_heads, head_dim))
 
 
 def causal_attention_fwd(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -170,6 +193,8 @@ def causal_attention_bwd(
         )
     build.check(lib, status, "causal_attention_bwd")
     telemetry.count("kernels.causal_attention_bwd")
+    if rows64(b, s, n_heads, head_dim) and qkv.data_ptr() % 16 == dout.data_ptr() % 16 == 0:
+        telemetry.count("kernels.causal_attention_bwd.rows64")
     return dqkv
 
 

@@ -183,20 +183,78 @@ def test_mlp_kernels_on_unaligned_rows(cuda, kernel, m, k, n):
         assert within_floored_ulps(mlp.matmul_gelu_bwd(*inputs), mlp.matmul_gelu_bwd_ref(*inputs), 2)
 
 
-@pytest.mark.parametrize("b, s, n_heads, head_dim", ATTENTION_SHAPES)
+# the backward's first launch on long rows (64-row tiles, two passes): the
+# benchmark's rows and widths (Pythia's 2048 of 128, GPT-2's 1024 of 64) at
+# fewer batches and heads; rows not a multiple of 64; the first row past
+# one chunk; GPT-2 s128's row.  On an H100 these grids of 64-row tiles fill
+# fewer than half the SMs and keep 16-row tiles; ROWS64_SHAPES, the same
+# rows with more heads or batches, take the long-row design.
+LONG_ROW_SHAPES = [
+    (1, 2048, 2, 128), (2, 1024, 2, 64), (1, 2047, 2, 128), (1, 1089, 1, 64), (2, 65, 2, 128),
+    (4, 128, 4, 64),
+]
+ROWS64_SHAPES = [
+    (1, 2048, 8, 128), (2, 1024, 4, 64), (1, 2047, 8, 128), (1, 1089, 8, 64), (8, 65, 8, 128),
+    (4, 128, 16, 64),
+]
+
+
+@pytest.mark.parametrize(
+    "b, s, n_heads, head_dim", ATTENTION_SHAPES + LONG_ROW_SHAPES + ROWS64_SHAPES)
 def test_attention_bwd_kernel_matches_plain(cuda, b, s, n_heads, head_dim):
     """dQ, dK and dV each within 3 bf16 ulps of each row's magnitude (a
     head of one query for dQ, of one key for dK and dV) and 2 of its own
     (``rows_close``): the kernels sum in another order than cuBLAS before
-    each bf16 rounding."""
+    each bf16 rounding.  ``ROWS64_SHAPES`` are counted as long-row calls."""
     d = n_heads * head_dim
     qkv = _normal((b, s, 3 * d), 4, cuda).bfloat16()
     dout = _normal((b, s, d), 5, cuda).bfloat16()
     before = telemetry.value("kernels.causal_attention_bwd")
+    rows64 = telemetry.value("kernels.causal_attention_bwd.rows64")
     (got,), same = run_twice(lambda: attention.causal_attention_bwd(qkv, dout, n_heads))
     assert telemetry.value("kernels.causal_attention_bwd") == before + 2 and same
+    if (b, s, n_heads, head_dim) in ROWS64_SHAPES:
+        assert telemetry.value("kernels.causal_attention_bwd.rows64") == rows64 + 2
     want = attention.causal_attention_bwd_ref(qkv, dout, n_heads)
     assert rows_close(got, want, head_dim, 3)
+
+
+@pytest.mark.parametrize("b, s, n_heads, head_dim", [
+    (1, 2048, 8, 128), (2, 1024, 4, 64), (1, 1089, 8, 64), (1, 2048, 2, 128), (2, 65, 2, 32),
+    (8, 64, 4, 32)])
+def test_attention_bwd_stats_plane_matches_plain(cuda, b, s, n_heads, head_dim):
+    """The statistics the first launch hands the second, f32 ``[3, b, h,
+    s]``, against the plain values in f64 from the same bf16 scores (the
+    long-row design carries the sum and D online, rescaled as the max
+    grows): the max within 1 bf16 ulp of itself (a score whose f32 sum
+    rounds to bf16 the other way), the sum within 2**-10 of itself, D
+    within 2**-10 of ``sum_k y |dP|``, the scale its terms cancel from."""
+    d = n_heads * head_dim
+    qkv = _normal((b, s, 3 * d), 6, cuda).bfloat16()
+    dout = _normal((b, s, d), 7, cuda).bfloat16()
+    stats = torch.full((3, b, n_heads, s), math.nan, device=cuda)
+    dqkv = torch.empty_like(qkv)
+    lib = attention._library()
+    status = lib.causal_attention_bwd_bf16(
+        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), b, s, n_heads,
+        head_dim, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert status == 0
+    q, k, v = (attention._heads(t, n_heads) for t in qkv.chunk(3, dim=-1))
+    d_out = attention._heads(dout, n_heads)
+    root = torch.tensor(head_dim, dtype=torch.float32, device=cuda).sqrt()
+    mask = torch.ones(s, s, dtype=torch.bool, device=cuda).tril()
+    scores = torch.where(mask, (q @ k.transpose(-1, -2)).float() / root, attention.MASK_FILL)
+    top = scores.amax(-1)
+    e = torch.exp(scores.double() - top.double().unsqueeze(-1))
+    total = e.sum(-1)
+    y = e / total.unsqueeze(-1)
+    d_p = (d_out @ v.transpose(-1, -2)).double()
+    big_d = (y * d_p).sum(-1)
+    scale = (y * d_p.abs()).sum(-1)
+    assert bool(((stats[0] - top).abs() <= bf16_ulp(top)).all())
+    assert bool(((stats[1].double() - total).abs() <= 2.0**-10 * total).all())
+    assert bool(((stats[2].double() - big_d).abs() <= 2.0**-10 * scale).all())
 
 
 # DemoConfig()'s [512, 128]; one row; 4096 rows; the widest rows; row
@@ -893,7 +951,10 @@ def test_ring_step_bwd_path_by_shape(cuda, shape, case, kernel):
 # first session.
 @pytest.mark.parametrize(
     "shape, tiles, args",
-    [((8, 64, 4, 32), True, "32, true"), ((1, 2048, 4, 32), True, "32, false"),
+    [((8, 64, 4, 32), True, "32, true"),
+     ((1, 2048, 4, 32), True, "32, false"),
+     ((1, 2048, 16, 128), True, ("128, false", "128")),
+     ((1, 1024, 2, 128), True, "128, false"),
      ((1, 4000, 1, 64), False, "64, 64, 2"), ((1, 4096, 4, 128), False, "128, 128, 2"),
      ((1, 3000, 6, 128), False, "128, 128, 1"),
      ((2, 128, 2, 256), False, ("256, 256, 2", "256, 128, 2")),
@@ -911,22 +972,31 @@ def test_attention_path_by_shape(cuda, shape, tiles, args):
     forward kernel and two backward kernels, named by path and template
     arguments (the padded head, one chunk or more; score and output
     columns, groups): one set for all three, or the forward's and dQ's,
-    then dK and dV's."""
+    then dK and dV's.  On the tiles path a row of more than one chunk with
+    a head of 64 or 128 takes dQ's long-row design (the padded head alone)
+    where the grid of 64-row tiles fills half the SMs, counted by
+    ``kernels.causal_attention_bwd.rows64``; a smaller grid (32 blocks of 64
+    rows at ``(1, 1024, 2, 128)``) or a narrower head (``(1, 2048, 4, 32)``)
+    keeps the 16-row tiles."""
     assert attention.tiles(*shape) == tiles
     b, s, n_heads, head_dim = shape
     qkv = _normal((b, s, 3 * n_heads * head_dim), 40, cuda).bfloat16()
     dout = _normal((b, s, n_heads * head_dim), 41, cuda).bfloat16()
+    first, last = (args, args) if isinstance(args, str) else args
     if tiles:
-        names = (f"causal_attention_kernel<{args}>", f"causal_attention_bwd_dq_kernel<{args}>",
-                 f"causal_attention_bwd_dkv_kernel<{args.split(',')[0]}>")
+        names = (f"causal_attention_kernel<{first}>", f"causal_attention_bwd_dq_kernel<{last}>",
+                 f"causal_attention_bwd_dkv_kernel<{first.split(',')[0]}>")
     else:
-        first, last = (args, args) if isinstance(args, str) else args
         names = (f"attention_stream_kernel<{first}>", f"attention_stream_dq_kernel<{first}>",
                  f"attention_stream_dkv_kernel<{last}>")
     fwd = _cuda_kernels(lambda: attention.causal_attention_fwd(qkv, n_heads))
+    rows64 = telemetry.value("kernels.causal_attention_bwd.rows64")
     bwd = _cuda_kernels(lambda: attention.causal_attention_bwd(qkv, dout, n_heads))
     assert len(fwd) == 1 and names[0] in fwd[0], fwd
     assert len(bwd) == 2 and names[1] in bwd[0] and names[2] in bwd[1], bwd
+    long_rows = tiles and first != last
+    assert attention.rows64(*shape) == long_rows
+    assert telemetry.value("kernels.causal_attention_bwd.rows64") == rows64 + 2 * long_rows
 
 
 @pytest.mark.parametrize("path", ["forward", "train_step"])
