@@ -6,7 +6,13 @@ line.  Everything that belongs to one configuration, traffic mix, metric,
 kernel class or cell's limits lives in a file of its own, found by name:
 
 - ``configs/<config>.json``: the sizes as run, the source, departures,
-  ``reduced`` and ``assumed``;
+  ``reduced`` and ``assumed``, and the ``architecture`` (``demo_block``
+  where the key is absent);
+- ``models/<architecture>.py``: the program the window drives, its weights
+  from the seed, the order of the check's norms, and the model's and its
+  kernel calls' operations and bytes (``models/__init__.py`` lists them);
+- ``reference/<architecture>.py``: the plain reference the check compares
+  with;
 - ``traffic/<traffic>.json``: the entry the window drives (a closed loop of
   one client), the batch, the sequence, the token law and the pool
   (``run.ENTRIES`` reads them);

@@ -1,4 +1,6 @@
-"""Operations and bytes of a call from the cell's shapes, and the card's peaks.
+"""Operations and bytes of one call from its shapes, and the card's peaks:
+the formulas that an architecture's counts (``models/<architecture>.py``)
+are built from.
 
 The same whatever implements the call: a product of ``m x k`` by ``k x n``
 is ``2 m k n`` operations (2 a multiply-add); attention counts only the
@@ -22,59 +24,37 @@ def bound_s(flops: float, nbytes: float) -> float:
     return max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES)
 
 
-def product_weights(cfg: dict) -> int:
-    """Weights that enter a product for every token: each layer's QKV,
-    output and two MLP products, and the unembedding (the embedding is a
-    gather, and the norm gains scale)."""
-    d, f = cfg["d_model"], cfg["d_ff"]
-    return cfg["n_layers"] * (3 * d * d + d * d + 2 * d * f) + d * cfg["vocab"]
-
-
 def causal_pairs(seq: int) -> int:
     """(query, key) pairs a causal mask leaves in one sequence of one head."""
     return seq * (seq + 1) // 2
 
 
-def attention_flops(cfg: dict, batch: int, seq: int, direction: str) -> float:
-    """One layer's attention: ``4 d`` a pair forward (scores and ``p @ v``),
-    ``8 d`` backward (dV, dP, dQ, dK)."""
-    per_pair = {"forward": 4, "backward": 8}[direction] * cfg["head_dim"]
-    return float(per_pair * causal_pairs(seq) * batch * cfg["n_heads"])
+def attention_flops(batch: int, seq: int, heads: int, qk_dim: int, v_dim: int, direction: str) -> float:
+    """One layer's causal attention over ``heads`` heads whose queries and
+    keys are ``qk_dim`` wide and values ``v_dim``: forward, the scores and
+    ``p @ v``, ``2 (qk_dim + v_dim)`` a pair; backward, dV, dP, dQ and dK,
+    twice that."""
+    per_pair = {"forward": 2, "backward": 4}[direction] * (qk_dim + v_dim)
+    return float(per_pair * causal_pairs(seq) * batch * heads)
 
 
-def attention_bytes(cfg: dict, batch: int, seq: int, direction: str) -> float:
-    """Forward: the bf16 QKV product in, the merged heads out.  Backward:
-    QKV and the output's gradient in, QKV's gradient out."""
-    width = batch * seq * cfg["d_model"] * BF16
-    return float({"forward": 3 * width + width, "backward": 3 * width + width + 3 * width}[direction])
+def attention_bytes(batch: int, seq: int, heads: int, qk_dim: int, v_dim: int, direction: str) -> float:
+    """Forward: q, k and v in bf16 in, the heads' outputs out.  Backward: q,
+    k, v and the outputs' gradient in, the gradients of q, k and v out."""
+    tokens = batch * seq * heads * BF16
+    qkv = tokens * (2 * qk_dim + v_dim)
+    out = tokens * v_dim
+    return float({"forward": qkv + out, "backward": qkv + out + qkv}[direction])
 
 
-def mlp_kernel_call(cfg: dict, batch: int, seq: int, direction: str, keep_pre: bool) -> tuple[float, float]:
-    """(operations, bytes) of one call of ``mlp_kernel``.  Forward (``x @
-    w1`` with the GELU): x and w1 in, h out, and h_pre out where the
-    gradient needs it.  Backward (``dy @ w2ᵀ`` with the GELU's slope): dy,
-    w2 and h_pre in, dh_pre out."""
-    m, d, f = batch * seq, cfg["d_model"], cfg["d_ff"]
+def mlp_kernel_call(tokens: int, d_in: int, d_out: int, direction: str, keep_pre: bool) -> tuple[float, float]:
+    """(operations, bytes) of one call of ``mlp_kernel`` on ``tokens`` rows,
+    its weight ``d_in x d_out``.  Forward (``x @ w1`` with the GELU): x and
+    w1 in, h out, and h_pre out where the gradient needs it.  Backward
+    (``dy @ w2ᵀ`` with the GELU's slope, ``w2`` being ``d_out x d_in``):
+    dy, w2 and h_pre in, dh_pre out."""
+    m, d, f = tokens, d_in, d_out
     flops = 2.0 * m * d * f
     if direction == "forward":
         return flops, float(BF16 * (m * d + d * f + m * f * (2 if keep_pre else 1)))
     return flops, float(BF16 * (m * d + f * d + 2 * m * f))
-
-
-def model_flops(cfg: dict, batch: int, seq: int, entry: str) -> float:
-    """The model's operations for one call of ``entry``: every product
-    (2 a weight and token forward, 6 for a train step) and attention."""
-    tokens = batch * seq
-    attention = attention_flops(cfg, batch, seq, "forward")
-    if entry == "train":
-        attention += attention_flops(cfg, batch, seq, "backward")
-        return 6.0 * product_weights(cfg) * tokens + cfg["n_layers"] * attention
-    if entry == "forward":
-        return 2.0 * product_weights(cfg) * tokens + cfg["n_layers"] * attention
-    raise ValueError(f"no operation count for entry {entry!r}")
-
-
-def parameters(cfg: dict) -> int:
-    """Every parameter: the products' weights, the embedding and the two
-    norm gains of each layer."""
-    return product_weights(cfg) + cfg["vocab"] * cfg["d_model"] + 2 * cfg["n_layers"] * cfg["d_model"]

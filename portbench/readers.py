@@ -1,6 +1,8 @@
 """The arithmetic the metric readers under ``metrics/`` share.  Each reader
 takes the run's ``Record`` and returns its number, or None where the run
-holds nothing for it (a metric of another entry, or no trace)."""
+holds nothing for it (a metric of another entry, or no trace).  What a
+model's operations and a kernel class's calls cost, the cell's
+architecture says (``run.cell.model``: ``model_flops`` and ``CALLS``)."""
 
 from __future__ import annotations
 
@@ -39,37 +41,20 @@ def mfu(run, kind: str):
     if entry(run) != kind or run.trace is None:
         return None
     cfg, batch, seq = shapes(run)
-    flops = counts.model_flops(cfg, batch, seq, kind) * run.trace.calls
+    flops = run.cell.model.model_flops(cfg, batch, seq, kind) * run.trace.calls
     return 100.0 * flops / run.trace.window_s / counts.PEAK_FLOPS
-
-
-def _attention_call(cfg, batch, seq, kind, call):
-    direction = "forward" if call == "causal_attention" else "backward"
-    return (counts.attention_flops(cfg, batch, seq, direction),
-            counts.attention_bytes(cfg, batch, seq, direction))
-
-
-def _mlp_call(cfg, batch, seq, kind, call):
-    direction = "forward" if call == "matmul_gelu" else "backward"
-    return counts.mlp_kernel_call(cfg, batch, seq, direction, keep_pre=kind == "train")
-
-
-# each kernel class's calls, by the call a kernel marks: (operations, bytes)
-CALLS = {
-    "attention": {"causal_attention": _attention_call, "causal_attention_bwd": _attention_call},
-    "mlp": {"matmul_gelu": _mlp_call, "matmul_gelu_bwd": _mlp_call},
-}
 
 
 def roofline(run, klass: str, kind: str):
     """The least time of the class's calls seen in the trace (each layer's
-    call counted from the kernel that marks it) over the class's device
-    time, in %."""
+    call counted from the kernel that marks it, each call's operations and
+    bytes from the architecture's ``CALLS``) over the class's device time,
+    in %."""
     if entry(run) != kind or run.trace is None or not run.trace.class_s.get(klass):
         return None
     cfg, batch, seq = shapes(run)
     least = 0.0
-    for call, cost in CALLS[klass].items():
+    for call, cost in run.cell.model.CALLS.get(klass, {}).items():
         seen = run.trace.class_calls.get(call, 0)
         if seen:
             least += seen * counts.bound_s(*cost(cfg, batch, seq, kind, call))

@@ -11,8 +11,9 @@
 with ``rmsnorm(x) = x / sqrt(mean(x²) + 1e-6)``, weights stored ``(in,
 out)``, q, k and v the QKV product's three equal column blocks, the heads
 ``d_head`` wide and merged back in order.  Every product runs in float32
-with TF32 off (``exact_f32``), unless ``Products`` is asked to hold its
-operands in fp8, which is the lower-precision control, not the reference.
+with TF32 off (``products.exact_f32``), unless ``Products`` is asked to
+hold its operands in fp8, which is the lower-precision control, not the
+reference.
 
 This module imports nothing of the program under test: it takes the
 parameters and tokens the benchmark made, never anything the program made
@@ -30,57 +31,11 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from portbench.reference.products import Products
+
 EPS = 1e-6
 TOKENS_AT_ONCE = 8192
 GELU_C = math.sqrt(2.0 / math.pi)
-
-
-def exact_f32() -> None:
-    """Float32 products in float32: no TF32, in cuBLAS or cuDNN."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-
-
-def fp8(t: torch.Tensor, dtype: torch.dtype = torch.float8_e4m3fn) -> torch.Tensor:
-    """``t`` rounded to an fp8 type under one scale for the whole tensor
-    (its largest magnitude to the type's largest), back in float32: how an
-    fp8 product's operand is held."""
-    scale = torch.finfo(dtype).max / t.abs().amax().clamp_min(1e-30)
-    return (t * scale).to(dtype).float() / scale
-
-
-class FP8Product(torch.autograd.Function):
-    """``a @ b`` with both operands in e4m3, and in the backward each
-    product's operands in fp8 too, the gradient in e5m2: fp8 training's
-    usual recipe."""
-
-    @staticmethod
-    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        a, b = fp8(a), fp8(b)
-        ctx.save_for_backward(a, b)
-        return a @ b
-
-    @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        a, b = ctx.saved_tensors
-        grad = fp8(grad, torch.float8_e5m2)
-        return grad @ b.transpose(-1, -2), a.transpose(-1, -2) @ grad
-
-
-class Products:
-    """Every product of the block: ``a @ b`` in float32, or with every
-    product's operands in fp8, forward and backward (``precision="fp8"``)."""
-
-    def __init__(self, precision: str = "f32"):
-        if precision not in ("f32", "fp8"):
-            raise ValueError(f"no products in {precision!r}")
-        self.precision = precision
-
-    def __call__(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        if self.precision == "fp8":
-            return FP8Product.apply(a, b)
-        return a @ b
 
 
 def rmsnorm(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
@@ -134,13 +89,14 @@ def leaves(params: dict) -> list:
             *(layer[k] for layer in params["layers"] for k in ("wqkv", "wo", "w1", "w2", "ln1", "ln2"))]
 
 
-def sgd_steps(params: dict, batches: list, n_heads: int, lr: float, mm: Products) -> dict:
+def sgd_steps(params: dict, batches: list, cfg: dict, mm: Products) -> dict:
     """Train ``params`` (updated in place) for one step a batch of
-    ``batches`` (each ``[batch, seq + 1]``), each step's loss the mean over
-    the batch.  Returns each
+    ``batches`` (each ``[batch, seq + 1]``) at the configuration's
+    ``learning_rate``, each step's loss the mean over the batch.  Returns each
     step's loss, each leaf's norm of the first gradient as the update took
     it, ``|p0 - p1| / lr``, and each leaf's norm of the change after the
     last step, ``|p_n - p0|``; leaves in ``leaves``'s order."""
+    n_heads, lr = cfg["n_heads"], cfg["learning_rate"]
     start = [p.detach().clone() for p in leaves(params)]
     live = leaves(params)
     for p in live:
@@ -174,8 +130,9 @@ def _rows_at_once(tokens: torch.Tensor) -> int:
     return max(1, TOKENS_AT_ONCE // tokens.shape[1])
 
 
-def forward_logits(params: dict, tokens: torch.Tensor, n_heads: int, mm: Products) -> list:
+def forward_logits(params: dict, tokens: torch.Tensor, cfg: dict, mm: Products) -> list:
     """float32 logits of ``tokens [batch, seq]``, one ``[seq, vocab]``
     tensor a row, computed ``TOKENS_AT_ONCE`` tokens' rows at a time."""
     with torch.no_grad():
-        return [row for part in tokens.split(_rows_at_once(tokens)) for row in logits(params, part, n_heads, mm)]
+        return [row for part in tokens.split(_rows_at_once(tokens))
+                for row in logits(params, part, cfg["n_heads"], mm)]

@@ -5,20 +5,23 @@ plain reference, one JSON line.
 
 In order:
 
-1. the cell's configuration, traffic and limits, by name (``spec``);
-2. the weights and a pool of token batches, made on the card from the seed
-   (``inputs``);
-3. the entry the traffic names, wrapped in ``operator_forge_torch.jit.jit``
-   as the entry points' callers wrap it, its one signature warmed up and
-   captured (``ENTRIES``); a train cell's first ``CHECK_STEPS`` steps run
-   here, through the window's own call, each on its own batch;
+1. the cell's configuration, architecture, traffic and limits, by name
+   (``spec``);
+2. the weights (the architecture's ``make_params``) and a pool of token
+   batches (``inputs``), made on the card from the seed;
+3. the architecture's program for the entry the traffic names, wrapped in
+   ``operator_forge_torch.jit.jit`` as the entry points' callers wrap it,
+   its one signature warmed up and captured (``ENTRIES``); a train cell's
+   first ``CHECK_STEPS`` steps run here, through the window's own call,
+   each on its own batch;
 4. a closed loop of one client for ``--seconds``: each call waits for its
    answer (a train step's loss, read every step; a forward call's logits)
    before the next is issued; with ``--trace 1`` a stretch of it is
    profiled (``trace``);
-5. the card's peak memory read, the program's state freed, then the plain
-   reference (``reference/``) computed for what the timed path produced,
-   and the numbers of ``check`` held to the cell's limits;
+5. the card's peak memory read, the program's state freed, then the
+   architecture's plain reference (``reference/``) computed for what the
+   timed path produced, and the numbers of ``check`` held to the cell's
+   limits;
 6. every compared number beside its limit on standard error, and the result
    as the last line of standard output.
 
@@ -30,7 +33,6 @@ than the cell asks for, or where a module of JAX or of the JAX package
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import math
 import os
@@ -43,14 +45,13 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import torch
-from operator_forge_torch import demo
 from operator_forge_torch.entry import pin_numerics
 from operator_forge_torch.jit import jit
 from operator_forge_torch.kernels import build
 
 from . import check, counts, inputs, spec
 from . import trace as tracing
-from .reference import demo_block as reference
+from .reference import products
 
 CHECK_STEPS = 3
 TRACE_FROM = 0.25    # the traced stretch starts this share into the window
@@ -92,26 +93,14 @@ def forbidden_modules() -> list:
     return sorted(name for name in sys.modules if name.split(".")[0] in FORBIDDEN)
 
 
-def demo_config(cell: spec.Cell) -> demo.DemoConfig:
-    cfg, traffic = cell.config, cell.traffic
-    config = demo.DemoConfig(vocab=cfg["vocab"], d_model=cfg["d_model"], n_heads=cfg["n_heads"],
-                             n_layers=cfg["n_layers"], d_ff=cfg["d_ff"], seq_len=traffic["seq"],
-                             batch=traffic["batch"], learning_rate=cfg["learning_rate"])
-    if config.head_dim != cfg["head_dim"]:
-        raise ValueError(f"{cell.config_name}: head_dim {cfg['head_dim']} is not d_model / n_heads")
-    return config
-
-
 class Train:
-    """A train step: ``jit(train_step)`` fed its own new parameters every
-    step, its loss read every step."""
+    """A train step: the architecture's ``jit(program)`` fed its own new
+    parameters every step, its loss read every step."""
 
-    sources = ("causal_attention", "mlp", "rmsnorm", "rmsnorm_bwd", "cross_entropy")
-
-    def __init__(self, config, params, pool, traffic, seed):
+    def __init__(self, cell, params, pool, seed):
         self.pool = pool
-        self.lr = config.learning_rate
-        self.step = jit(functools.partial(demo.train_step, config=config))
+        self.lr = cell.config["learning_rate"]
+        self.step = jit(cell.model.program(cell.config, cell.traffic, "train"))
         self.params = params
         self.failed = 0
         self.readings = {}
@@ -119,9 +108,11 @@ class Train:
     def prepare(self, cell, seed) -> float:
         """The capture and the first ``CHECK_STEPS`` steps from the seed's
         weights, on the pool's first batches; keeps each loss, each leaf's
-        first gradient norm and change norm.  Returns the seconds spent on
-        those norms (not the program's set-up)."""
+        first gradient norm and change norm (in the architecture's
+        ``leaves`` order).  Returns the seconds spent on those norms (not
+        the program's set-up)."""
         norm = torch.linalg.vector_norm
+        leaves = cell.model.leaves
         losses, aside = [], 0.0
         start = self.params
         for i in range(CHECK_STEPS):
@@ -129,35 +120,16 @@ class Train:
             losses.append(loss.item())
             if i == 0:
                 t0 = time.perf_counter()
-                grads = torch.stack([norm(a - b) for a, b in zip(demo.tree_leaves(start),
-                                                                 demo.tree_leaves(new))])
+                grads = torch.stack([norm(a - b) for a, b in zip(leaves(start), leaves(new))])
                 self.readings["grad_norms"] = (grads / self.lr).tolist()
                 del start
                 aside += time.perf_counter() - t0
             self.params = new
         t0 = time.perf_counter()
         self.readings["losses"] = losses
-        self.readings["change_norms"] = self._change_norms(cell, seed)
+        self.readings["change_norms"] = cell.model.change_norms(self.params, cell.config, seed,
+                                                                self.pool.device)
         return aside + time.perf_counter() - t0
-
-    def _change_norms(self, cell, seed) -> list:
-        """|p - p0| of each leaf, the seed's weights made again a group at a
-        time, in ``tree_leaves``'s order."""
-        cfg = cell.config
-        device = self.params["embed"].device
-        found = {}
-        for name in inputs.GROUPS:
-            start = inputs.make_group(cfg, seed, name, device)
-            starts = [start] if name in ("embed", "unembed") else list(start)
-            for i, (leaf, p0) in enumerate(zip(inputs.group_leaves(self.params, name), starts)):
-                found[(name, i)] = torch.linalg.vector_norm(leaf - p0)
-            del start, starts
-        for i, layer in enumerate(self.params["layers"]):
-            for name in ("ln1", "ln2"):
-                found[(name, i)] = torch.linalg.vector_norm(layer[name] - 1.0)
-        order = [("embed", 0), ("unembed", 0)] + [(k, i) for i in range(cfg["n_layers"])
-                                                  for k in inputs.LAYER_KEYS]
-        return torch.stack([found[key] for key in order]).tolist()
 
     def call(self, i: int) -> None:
         self.params, loss = self.step(self.params, self.pool[(CHECK_STEPS + i) % len(self.pool)])
@@ -171,16 +143,15 @@ class Train:
 
 
 class Forward:
-    """Scoring: ``jit(forward)``, each call's f32 logits the reply to one
-    request, waited for before the next.  Keeps the replies of calls drawn
-    from the seed among the window's first ``checked_from_first``, and of
-    its last call, for the check."""
+    """Scoring: the architecture's ``jit(program)``, each call's f32 logits
+    the reply to one request, waited for before the next.  Keeps the
+    replies of calls drawn from the seed among the window's first
+    ``checked_from_first``, and of its last call, for the check."""
 
-    sources = ("causal_attention", "mlp", "rmsnorm")
-
-    def __init__(self, config, params, pool, traffic, seed):
+    def __init__(self, cell, params, pool, seed):
+        traffic = cell.traffic
         self.pool, self.params = pool, params
-        self.fwd = jit(functools.partial(demo.forward, config=config))
+        self.fwd = jit(cell.model.program(cell.config, traffic, "forward"))
         self.failed = 0
         draw = random.Random(seed)
         self.checked = sorted(draw.sample(range(traffic["checked_from_first"]), traffic["checked_calls"]))
@@ -197,7 +168,7 @@ class Forward:
         return 0.0
 
     def _wait(self) -> None:
-        if self.params["embed"].is_cuda:
+        if self.pool.is_cuda:
             torch.cuda.current_stream().synchronize()
 
     def call(self, i: int) -> None:
@@ -264,25 +235,24 @@ def start(cell: spec.Cell, seed: int, device, phases: Phases | None = None):
     each part: the card's context, the build (``compile``), the weights,
     the pool, and the capture with the first calls."""
     phases = phases or Phases(time.perf_counter())
-    traffic, cfg = cell.traffic, cell.config
-    config = demo_config(cell)
+    traffic, cfg, model = cell.traffic, cell.config, cell.model
     kind = ENTRIES[traffic["entry"]]
     if device.type == "cuda":
         torch.cuda.set_device(device)
         torch.empty(1, device=device)
         phases.mark("context")
-        _prebuild(kind.sources)
+        _prebuild(model.SOURCES[traffic["entry"]])
         phases.mark("compile")
     pin_numerics()
-    params = inputs.make_params(cfg, seed, device)
+    params = model.make_params(cfg, seed, device)
     if device.type == "cuda":
         torch.cuda.synchronize()
     phases.mark("weights")
-    pool = inputs.token_pool(cfg, traffic, seed, device)
+    pool = inputs.token_pool(model.vocab(cfg), traffic, seed, device)
     if device.type == "cuda":
         torch.cuda.synchronize()
     phases.mark("pool")
-    entry = kind(config, params, pool, traffic, seed)
+    entry = kind(cell, params, pool, seed)
     del params
     aside = entry.prepare(cell, seed)
     if device.type == "cuda":
@@ -292,18 +262,17 @@ def start(cell: spec.Cell, seed: int, device, phases: Phases | None = None):
 
 
 def reference_outputs(cell: spec.Cell, seed: int, pool, device, calls=(), precision: str = "f32"):
-    """What the plain reference gives in the program's place, in the form
-    the program's outputs take: for a train cell the readings of its first
-    steps; for a forward cell each call of ``calls``'s logits."""
-    cfg = cell.config
-    reference.exact_f32()
-    params = inputs.make_params(cfg, seed, device)
-    mm = reference.Products(precision)
+    """What the architecture's plain reference gives in the program's place,
+    in the form the program's outputs take: for a train cell the readings
+    of its first steps; for a forward cell each call of ``calls``'s
+    logits."""
+    cfg, reference = cell.config, cell.reference
+    products.exact_f32()
+    params = cell.model.make_params(cfg, seed, device)
+    mm = products.Products(precision)
     if cell.traffic["entry"] == "train":
-        return reference.sgd_steps(params, [pool[i] for i in range(CHECK_STEPS)], cfg["n_heads"],
-                                   cfg["learning_rate"], mm)
-    return {i: torch.stack(reference.forward_logits(params, pool[i % len(pool)], cfg["n_heads"], mm))
-            for i in calls}
+        return reference.sgd_steps(params, [pool[i] for i in range(CHECK_STEPS)], cfg, mm)
+    return {i: torch.stack(reference.forward_logits(params, pool[i % len(pool)], cfg, mm)) for i in calls}
 
 
 def compare(cell: spec.Cell, seed: int, pool, device, outputs: list) -> list:
@@ -313,12 +282,12 @@ def compare(cell: spec.Cell, seed: int, pool, device, outputs: list) -> list:
     if cell.traffic["entry"] == "train":
         want = reference_outputs(cell, seed, pool, device)
         return [check.train_numbers(out, want) for out in outputs]
-    reference.exact_f32()
-    params = inputs.make_params(cfg, seed, device)
-    mm = reference.Products("f32")
+    products.exact_f32()
+    params = cell.model.make_params(cfg, seed, device)
+    mm = products.Products("f32")
     gaps = [check.LogitGaps() for _ in outputs]
     for i in sorted(outputs[0]):
-        rows = reference.forward_logits(params, pool[i % len(pool)], cfg["n_heads"], mm)
+        rows = cell.reference.forward_logits(params, pool[i % len(pool)], cfg, mm)
         for gap, out in zip(gaps, outputs):
             gap.add_call(out[i], rows)
     return [{**gap.numbers(), "calls_checked": len(outputs[0])} for gap in gaps]

@@ -1,8 +1,9 @@
 """Where a run finds its parts: ``BENCHMARK.json`` and, by the names in it,
-each configuration, traffic mix, metric reader, kernel class and cell's
-limits.  A later cell, metric or kernel class is a new file and a new entry,
-never an edit here.  ``root`` is the benchmark's folder (``portbench/``);
-paths in ``BENCHMARK.json`` are relative to the folder above it."""
+each configuration, the architecture its file names, traffic mix, metric
+reader, kernel class and cell's limits.  A later cell, architecture, metric
+or kernel class is a new file and a new entry, never an edit here.  ``root``
+is the benchmark's folder (``portbench/``); paths in ``BENCHMARK.json`` are
+relative to the folder above it."""
 
 from __future__ import annotations
 
@@ -11,8 +12,11 @@ import json
 import re
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 
 ROOT = Path(__file__).resolve().parent
+# the architecture of a configuration file without an ``architecture`` key
+DEFAULT_ARCHITECTURE = "demo_block"
 
 
 @dataclass(frozen=True)
@@ -28,6 +32,9 @@ class Cell:
     limits: dict
     end_to_end: list
     per_layer: list
+    architecture: str
+    model: ModuleType       # models/<architecture>.py
+    reference: ModuleType   # reference/<architecture>.py
     root: Path = ROOT
 
 
@@ -44,9 +51,30 @@ def _reports(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
+def load_module(path: Path, prefix: str) -> ModuleType:
+    """The Python file ``path``, loaded by its path under a name of its own."""
+    spec = importlib.util.spec_from_file_location(f"{prefix}_{re.sub(r'\W', '_', path.stem)}", path)
+    if spec is None or spec.loader is None:
+        raise FileNotFoundError(path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def architecture(name: str, root: Path = ROOT) -> tuple[ModuleType, ModuleType]:
+    """``(model, reference)`` of the architecture ``name``: what the harness
+    runs and counts (``models/<name>.py``) and its plain reference
+    (``reference/<name>.py``)."""
+    paths = (root / "models" / f"{name}.py", root / "reference" / f"{name}.py")
+    if not all(path.is_file() for path in paths):
+        raise FileNotFoundError(f"no architecture {name!r}: it needs both {paths[0]} and {paths[1]}")
+    return load_module(paths[0], "portbench_model"), load_module(paths[1], "portbench_reference")
+
+
 def find_cell(name: str, bench: dict | None = None, root: Path = ROOT) -> Cell:
     """The cell ``name`` of ``bench`` (``BENCHMARK.json`` by default) with
-    its configuration, traffic, limits and the metrics it reports."""
+    its configuration, architecture, traffic, limits and the metrics it
+    reports."""
     bench = bench if bench is not None else benchmark(root)
     found = [w for w in bench["workloads"] if w["name"] == name]
     if not found:
@@ -54,29 +82,29 @@ def find_cell(name: str, bench: dict | None = None, root: Path = ROOT) -> Cell:
                        + ", ".join(w["name"] for w in bench["workloads"]))
     work = found[0]
     config = next(c for c in bench["configs"] if c["name"] == work["config"])
+    sizes = load_json(root.parent / config["file"])
+    arch = sizes.get("architecture", DEFAULT_ARCHITECTURE)
+    model, reference = architecture(arch, root)
     return Cell(
         name=name,
         chips=int(work["chips"]),
         config_name=config["name"],
-        config=load_json(root.parent / config["file"]),
+        config=sizes,
         traffic_name=work["traffic"],
         traffic=load_json(root / "traffic" / f"{work['traffic']}.json"),
         limits=load_json(root / "limits" / f"{name}.json"),
         end_to_end=[m for m in bench["end_to_end"] if _reports(m, name)],
         per_layer=[m for m in bench["per_layer"] if _reports(m, name)],
+        architecture=arch,
+        model=model,
+        reference=reference,
         root=root,
     )
 
 
 def metric_reader(name: str, root: Path = ROOT):
     """``read`` of ``metrics/<name>.py``."""
-    path = root / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{re.sub(r'\W', '_', name)}", path)
-    if spec is None or spec.loader is None:
-        raise FileNotFoundError(path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return load_module(root / "metrics" / f"{name}.py", "portbench_metric").read
 
 
 @dataclass(frozen=True)

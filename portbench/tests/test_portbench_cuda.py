@@ -33,8 +33,11 @@ def test_a_cell_runs_correct_and_its_trace_reads_every_per_layer_metric():
     assert traced["correct"] is True, traced["checks"]
     assert {m["name"] for m in cell.per_layer} == set(traced["metrics"])
     assert 0 < traced["device"]["busy_s"] <= traced["device"]["window_s"]
+    units = {m["name"]: m["unit"] for m in cell.per_layer}
     for name, metric in traced["metrics"].items():
-        assert 0 < metric["value"] <= 100, name
+        assert metric["value"] > 0, name
+        if units[name] == "%":
+            assert metric["value"] <= 100, name
     assert traced["breakdown"]["device_ops"] and len(traced["breakdown"]["device_ops"]) <= 10
 
 

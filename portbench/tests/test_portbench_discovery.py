@@ -51,14 +51,16 @@ def test_same_seed_same_inputs_other_seed_other_inputs():
     from portbench import inputs
 
     cfg = tiny.config()
+    model, _ = spec.architecture("demo_block")
     cpu = torch.device("cpu")
-    a, b = inputs.make_params(cfg, 2**31 + 9, cpu), inputs.make_params(cfg, 2**31 + 9, cpu)
-    c = inputs.make_params(cfg, 2**31 + 10, cpu)
+    a, b = model.make_params(cfg, 2**31 + 9, cpu), model.make_params(cfg, 2**31 + 9, cpu)
+    c = model.make_params(cfg, 2**31 + 10, cpu)
     assert torch.equal(a["layers"][1]["w2"], b["layers"][1]["w2"])
     assert not torch.equal(a["layers"][1]["w2"], c["layers"][1]["w2"])
-    assert torch.equal(inputs.make_group(cfg, 2**31 + 9, "w2", cpu)[1], a["layers"][1]["w2"])
-    pool = inputs.token_pool(cfg, tiny.TRAIN, 2**31 + 9, cpu)
-    assert pool.shape == (8, 4, tiny.TRAIN["seq"] + 1) and torch.equal(pool, inputs.token_pool(cfg, tiny.TRAIN, 2**31 + 9, cpu))
+    assert torch.equal(model.make_group(cfg, 2**31 + 9, "w2", cpu)[1], a["layers"][1]["w2"])
+    vocab = model.vocab(cfg)
+    pool = inputs.token_pool(vocab, tiny.TRAIN, 2**31 + 9, cpu)
+    assert pool.shape == (8, 4, tiny.TRAIN["seq"] + 1) and torch.equal(pool, inputs.token_pool(vocab, tiny.TRAIN, 2**31 + 9, cpu))
     assert int(pool.min()) >= 0 and int(pool.max()) < cfg["vocab"]
     # Zipf: the most frequent id is far above the mean share
     counts = torch.bincount(pool.flatten(), minlength=cfg["vocab"])

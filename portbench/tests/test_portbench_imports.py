@@ -29,28 +29,33 @@ def test_the_benchmark_and_every_reader_load_no_jax():
             "from portbench import spec\n"
             "for m in spec.benchmark()['end_to_end'] + spec.benchmark()['per_layer']:\n"
             "    spec.metric_reader(m['name'])\n"
+            "for w in spec.benchmark()['workloads']:\n"
+            "    spec.find_cell(w['name'])\n"
             "import operator_forge_torch.demo, operator_forge_torch.jit, operator_forge_torch.entry\n")
     names = loaded(code)
     assert "operator_forge_torch" in names
     assert not names & FORBIDDEN
 
 
-def test_the_reference_loads_nothing_of_the_program():
-    names = loaded("import portbench.reference.demo_block")
+@pytest.mark.parametrize("path", sorted((spec.ROOT / "reference").glob("*.py")), ids=lambda p: p.name)
+def test_the_reference_loads_nothing_of_the_program(path):
+    names = loaded(f"from portbench import spec\nspec.load_module(spec.ROOT / 'reference' / {path.name!r}, 'r')")
     assert not names & (FORBIDDEN | {"operator_forge_torch"})
 
 
 @pytest.mark.parametrize("path", sorted((spec.ROOT / "reference").glob("*.py")), ids=lambda p: p.name)
 def test_the_reference_source_imports_only_torch_and_the_standard_library(path):
+    """...and the references' shared products (``portbench.reference.*``)."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            tops = {alias.name.split(".")[0] for alias in node.names}
+            names = [alias.name for alias in node.names]
         elif isinstance(node, ast.ImportFrom):
-            tops = {(node.module or "").split(".")[0]} if node.level == 0 else {"."}
+            names = [node.module or ""] if node.level == 0 else ["."]
         else:
             continue
-        assert tops <= {"torch", "math", "__future__"}, (path.name, tops)
+        tops = {name.split(".")[0] for name in names if not name.startswith("portbench.reference.")}
+        assert tops <= {"torch", "math", "__future__"}, (path.name, names)
 
 
 def test_a_run_refuses_where_a_jax_module_is_loaded(monkeypatch):

@@ -2,13 +2,15 @@
 into device busy time, time and calls by kernel class, and the breakdown.
 
 The profiler session opens ``GUARD_S`` before the stretch's first call and
-closes ``GUARD_S`` after its last call has finished, because the profiler
-can place a kernel's start before its launch call
-(``operator_forge_torch/profile_window.py`` measured it; the guard is
-copied here).  The stretch's time is the host's, from the first call's
-issue to the last call's end.  Busy time is the union of the intervals of
-the device kernels recorded, as ``operator_forge_torch/trace_step.py``'s
-``_busy_us`` takes it.
+closes ``GUARD_S`` after its last call has finished.  The profiler's clock
+for the device can place a kernel's start before the host call that
+launched it, so a session opened at the first call's issue could lose the
+head of the stretch's first kernels; nothing is launched during either
+guard and the last call ends synchronised, so every kernel recorded is the
+stretch's.  The stretch's time is the host's, from the first call's issue
+to the last call's end.  Busy time is the union of the intervals of the
+device kernels recorded: time in which at least one kernel ran, kernels
+that overlap counted once.
 """
 
 from __future__ import annotations
