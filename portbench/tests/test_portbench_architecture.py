@@ -7,6 +7,9 @@
 - A throwaway architecture written only as new files under a temporary
   root runs through ``run.run`` and is correct, and ``mfu`` counts its
   operations; an unknown one fails at once, naming both files.
+- A tree with a cut configuration of that architecture, and one with a cell
+  on four chips among four, keep every rule of ``rules.py``; a tree that
+  breaks one of them fails that rule.
 - Every kernel of the port's sources that an architecture names lands in a
   kernel class (``kernels/*.json``), not silently in ``glue``.
 """
@@ -21,7 +24,7 @@ import torch
 from operator_forge_torch.kernels import build
 
 from portbench import counts, run, spec
-from portbench.tests import tiny
+from portbench.tests import rules, tiny
 
 SEED = 2**31 + 9
 CPU = torch.device("cpu")
@@ -62,11 +65,11 @@ def program(cfg, traffic, entry):
 
 
 def vocab(cfg):
-    return cfg["vocab"]
+    return cfg["vocab_size"]
 
 
 def make_params(cfg, seed, device):
-    v, d = cfg["vocab"], cfg["d_model"]
+    v, d = cfg["vocab_size"], cfg["hidden_size"]
     return {name: torch.randn(shape, generator=inputs.generator(seed, name, device), device=device)
             .mul_(cfg["init_std"]) for name, shape in (("embed", (v, d)), ("unembed", (d, v)))}
 
@@ -81,11 +84,11 @@ def change_norms(params, cfg, seed, device):
 
 
 def model_flops(cfg, batch, seq, entry):
-    return {"train": 6.0, "forward": 2.0}[entry] * cfg["d_model"] * cfg["vocab"] * batch * seq
+    return {"train": 6.0, "forward": 2.0}[entry] * cfg["hidden_size"] * cfg["vocab_size"] * batch * seq
 
 
 def parameters(cfg):
-    return 2 * cfg["vocab"] * cfg["d_model"]
+    return 2 * cfg["vocab_size"] * cfg["hidden_size"]
 '''
 
 BIGRAM_REFERENCE = '''"""The throwaway architecture from its equation, in float32."""
@@ -126,7 +129,11 @@ def forward_logits(params, tokens, cfg, mm):
         return list(logits(params, tokens, mm))
 '''
 
-BIGRAM = {"architecture": "bigram", "vocab": 512, "d_model": 64, "learning_rate": 0.5, "init_std": 0.02}
+# a cut configuration: the published vocabulary of 4096 cut to 512, as a
+# slice of it, and none of the demo block's keys
+BIGRAM = {"architecture": "bigram", "source": "a throwaway architecture of the harness's tests",
+          "published": {"vocab_size": 4096, "hidden_size": 64}, "vocab_size": 512, "hidden_size": 64,
+          "reduced": ["vocab_size"], "learning_rate": 0.5, "init_std": 0.02}
 
 
 @pytest.fixture
@@ -159,16 +166,18 @@ def test_the_demo_blocks_check_numbers_are_the_parents_bits(tmp_path, one_thread
 
 
 def bigram_tree(tmp_path):
-    """The tiny tree with the throwaway architecture, a configuration of it
-    and a train and a forward cell, all new files and entries."""
+    """The tiny tree with the throwaway architecture, a cut configuration
+    of it and a train and a forward cell, all new files and entries."""
     root, bench = tiny.tree(tmp_path)
     (root / "models" / "bigram.py").write_text(BIGRAM_MODEL)
     (root / "reference" / "bigram.py").write_text(BIGRAM_REFERENCE)
     tiny.write(root / "configs" / "bigram.json", BIGRAM)
-    bench["configs"].append({"name": "bigram", "file": "portbench/configs/bigram.json"})
+    bench["configs"].append({"name": "bigram", "source": BIGRAM["source"], "file": "portbench/configs/bigram.json",
+                             "reduced": ["vocab_size"], "why": "another architecture, cut"})
     for kind in ("train", "forward"):
         cell = f"bigram.{kind}"
-        bench["workloads"].append({"name": cell, "config": "bigram", "traffic": f"{kind}.tiny", "chips": 1})
+        bench["workloads"].append({"name": cell, "config": "bigram", "traffic": f"{kind}.tiny", "chips": 1,
+                                   "why": f"the cut configuration's {kind}"})
         (root / "limits" / f"{cell}.json").write_text((root / "limits" / f"tiny.{kind}.json").read_text())
         for metric in bench["end_to_end"] + bench["per_layer"]:
             if f"tiny.{kind}" in metric.get("workloads", ()):
@@ -192,6 +201,105 @@ def test_a_new_architecture_is_new_files_only_and_runs_correct(tmp_path, kind):
     # no kernel class has calls of this architecture: no roofline
     record.trace = SimpleNamespace(calls=5, window_s=2.0, class_s={"attention": 1.0}, class_calls={})
     assert spec.metric_reader(f"attention_roofline.{kind}", root)(record) is None
+
+
+def four_chip_tree(tmp_path):
+    """The bigram tree cut to its four cells of the tiny and the bigram
+    configurations, with ``bigram.train`` on four chips."""
+    root, bench = bigram_tree(tmp_path)
+    kept = ("tiny.train", "tiny.forward", "bigram.train", "bigram.forward")
+    bench["workloads"] = [{**w, "chips": 4 if w["name"] == "bigram.train" else 1}
+                          for w in bench["workloads"] if w["name"] in kept]
+    bench["configs"] = [c for c in bench["configs"] if c["name"] in ("tiny", "bigram")]
+    for metric in bench["end_to_end"] + bench["per_layer"]:
+        if "workloads" in metric:
+            metric["workloads"] = [w for w in metric["workloads"] if w in kept]
+    return root, bench
+
+
+@pytest.mark.parametrize("tree", [bigram_tree, four_chip_tree])
+def test_a_cut_configuration_of_another_architecture_keeps_every_rule(tmp_path, tree):
+    root, bench = tree(tmp_path)
+    cfg = spec.find_cell("bigram.train", bench, root).config
+    assert cfg["reduced"] and not {"head_dim", "n_heads", "d_model"} & set(cfg)
+    rules.check(bench, root)
+
+
+def _rewrite(root, bench, **changes):
+    """The bigram configuration's file with ``changes``, and its entry's
+    ``reduced`` the file's."""
+    cfg = {**BIGRAM, **changes}
+    tiny.write(root / "configs" / "bigram.json", cfg)
+    next(c for c in bench["configs"] if c["name"] == "bigram")["reduced"] = cfg["reduced"]
+
+
+def _reduced_differs(root, bench):
+    next(c for c in bench["configs"] if c["name"] == "bigram")["reduced"] = []
+
+
+def _second_four_chip_cell(root, bench):
+    next(w for w in bench["workloads"] if w["name"] == "bigram.forward")["chips"] = 4
+
+
+def _a_why_on_a_metric(root, bench):
+    bench["per_layer"][0]["why"] = "a key that no metric has"
+
+
+def _a_configuration_no_cell_uses(root, bench):
+    bench["workloads"] = [w for w in bench["workloads"] if w["config"] != "bigram"]
+    for metric in bench["end_to_end"] + bench["per_layer"]:
+        if "workloads" in metric:
+            metric["workloads"] = [w for w in metric["workloads"] if not w.startswith("bigram.")]
+
+
+def _reduced(bench, root):
+    rules.config_lists_each_cut_in_reduced(bench, root, "bigram")
+
+
+# each way of breaking a tree: (the tree, the break, the rule it breaks,
+# held on what it broke, and what that rule says)
+BROKEN = {
+    "reduced_differs_from_the_file": (
+        bigram_tree, _reduced_differs, _reduced,
+        r"reduced in BENCHMARK.json \[\] is not the file's \['vocab_size'\]"),
+    "reduced_names_no_published_key": (
+        bigram_tree, lambda root, bench: _rewrite(root, bench, reduced=["vocab"], vocab=512),
+        _reduced, "'vocab' in reduced is no key of the published block"),
+    "a_listed_key_keeps_its_published_value": (
+        bigram_tree, lambda root, bench: _rewrite(root, bench, vocab_size=4096),
+        _reduced, "'vocab_size' is in reduced but the file keeps its published value 4096"),
+    "a_cut_left_out_of_reduced": (
+        bigram_tree, lambda root, bench: _rewrite(root, bench, reduced=[]),
+        _reduced, "'vocab_size' is 512 against the published 4096 and not in reduced"),
+    "a_width_in_reduced": (
+        bigram_tree, lambda root, bench: _rewrite(root, bench, reduced=["vocab_size", "hidden_size"],
+                                                  hidden_size=32),
+        _reduced, "'hidden_size' is a width"),
+    "an_architecture_with_no_files": (
+        bigram_tree, lambda root, bench: _rewrite(root, bench, architecture="trigram"),
+        lambda bench, root: rules.cell_runs_the_architecture_its_file_names(bench, root, "bigram.train"),
+        "architecture 'trigram' names no file"),
+    "a_second_cell_on_four_chips_among_four": (
+        four_chip_tree, _second_four_chip_cell, rules.at_most_a_quarter_of_the_cells_take_four_chips,
+        r"2 cells on 4 chips among 4, at most 1"),
+    "an_entry_with_a_key_of_its_own": (
+        bigram_tree, _a_why_on_a_metric,
+        lambda bench, root: rules.entry_within_the_allowed_keys_and_characters(bench, root, bench["per_layer"][0]),
+        "keys .*'why'.*, not those of per_layer"),
+    "a_configuration_no_cell_uses": (
+        bigram_tree, _a_configuration_no_cell_uses, rules.config_files_are_their_own_and_under_paths,
+        "configuration bigram is used by no cell"),
+}
+
+
+@pytest.mark.parametrize("name", list(BROKEN))
+def test_a_tree_that_breaks_a_rule_fails_that_rule(tmp_path, name):
+    tree, breaks, rule, says = BROKEN[name]
+    root, bench = tree(tmp_path)
+    breaks(root, bench)
+    for holds in (rule, rules.check):
+        with pytest.raises(AssertionError, match=says):
+            holds(bench, root)
 
 
 def test_an_unknown_architecture_fails_naming_both_files(tmp_path):
@@ -246,6 +354,9 @@ def test_every_kernel_of_an_architectures_sources_lands_in_a_class(name):
 
 
 def test_a_configuration_without_the_key_is_the_demo_block():
-    for work in spec.benchmark()["workloads"]:
+    bench = spec.benchmark()
+    for work in bench["workloads"]:
+        rules.cell_runs_the_architecture_its_file_names(bench, spec.ROOT, work["name"])
         cell = spec.find_cell(work["name"])
-        assert "architecture" not in cell.config and cell.architecture == "demo_block"
+        if cell.config_name in rules.UNCUT:
+            assert "architecture" not in cell.config and cell.architecture == "demo_block"

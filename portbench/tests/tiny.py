@@ -37,17 +37,20 @@ def tree(tmp: Path) -> tuple[Path, dict]:
     cells added, and the benchmark dict that names them."""
     root = tmp / "portbench"
     shutil.copytree(spec.ROOT, root, ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    write(root / "configs" / "tiny.json", config())
+    cfg = config()
+    write(root / "configs" / "tiny.json", cfg)
     write(root / "traffic" / "train.tiny.json", TRAIN)
     write(root / "traffic" / "forward.tiny.json", FORWARD)
     for cell, real in LIMITS_OF.items():
         shutil.copy(spec.ROOT / "limits" / f"{real}.json", root / "limits" / f"{cell}.json")
     bench = spec.benchmark()
     bench = {**bench,
-             "configs": bench["configs"] + [{"name": "tiny", "file": "portbench/configs/tiny.json"}],
+             "configs": bench["configs"] + [
+                 {"name": "tiny", "source": cfg["source"], "file": "portbench/configs/tiny.json",
+                  "reduced": cfg["reduced"], "why": "the demo block at a size the CPU runs in seconds"}],
              "workloads": bench["workloads"] + [
-                 {"name": "tiny.train", "config": "tiny", "traffic": "train.tiny", "chips": 1},
-                 {"name": "tiny.forward", "config": "tiny", "traffic": "forward.tiny", "chips": 1}]}
+                 {"name": f"tiny.{kind}", "config": "tiny", "traffic": f"{kind}.tiny", "chips": 1,
+                  "why": f"the tiny {kind}"} for kind in ("train", "forward")]}
     for metric in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in metric:
             kind = "tiny.train" if any(".train." in w for w in metric["workloads"]) else "tiny.forward"
