@@ -92,7 +92,11 @@ Phases, each of which exits non-zero on a failed check:
       checked and timed as (c)'s rows, beside cuDNN's backward, with its
       first launch's device time apart under the profiler (after (h')'s
       profiled calls: the profiler sets its clock at its first session) and
-      that launch's bound, on a ``cell_shapes`` line with no launches;
+      that launch's bound; then RMSNorm's backward at the same cells' rows
+      ([8192, 2048], [16384, 1024]) with a bf16 dy, on its grid path, beside
+      PyTorch's fused RMSNorm backward; on a ``cell_shapes`` line with no
+      launches (``--cell-shapes`` adds (c)'s RMSNorm backward row at
+      ``DemoConfig()``'s shape);
   (i) print the ring phases' launches by block, mask and head width, then
       ``{"kernels": [...]}``, launches summed over (d), (e), (e'), (g) and
       (h) (not (h'), whose replays only the profiler counts; for the
@@ -504,37 +508,48 @@ def attention_bwd_row(qkv, dout, n_heads: int, name: str, reps: int = 100) -> di
     )
 
 
-def backward_rows(inputs: dict) -> list[dict]:
-    """The train step's kernels: the three backwards and cross entropy."""
-    rows = [attention_bwd_row(*inputs["attention_bwd"], "causal_attention_bwd")]
-
-    # RMSNorm backward: rtol 1e-5, atol 1e-6 of each output's max; the
-    # size of the cluster it runs on (none where a tree's backward takes
-    # none: this script run from an older checkout, to compare)
-    x, gain, dy = inputs["rmsnorm_bwd"]
-    got = rmsnorm.rmsnorm_bwd(x, gain, dy)
-    want = rmsnorm.rmsnorm_bwd_ref(x, gain, dy)
-    cluster = getattr(rmsnorm, "cluster", None)
-    print(json.dumps({"rmsnorm_bwd_cluster": cluster() if cluster else None}))
-    # PyTorch's fused RMSNorm backward alone, on its forward's saved rstd
+def rmsnorm_bwd_row(x, gain, dy, name: str, reps: int = 100) -> dict:
+    """RMSNorm's backward, dx and dgain within rtol 1e-5 and atol 1e-6 of
+    each output's max, beside PyTorch's fused RMSNorm backward alone on its
+    forward's saved rstd (on dy in f32).  A bf16 dy goes the model's way,
+    ``rmsnorm_bwd_bf16`` (``rmsnorm_to_bf16``'s backward)."""
+    bf16 = dy.dtype == torch.bfloat16
+    call = (lambda: rmsnorm.rmsnorm_bwd_bf16(x, gain, dy)) if bf16 else (
+        lambda: rmsnorm.rmsnorm_bwd(x, gain, dy))
+    dy32 = dy.float()
+    got = call()
+    want = rmsnorm.rmsnorm_bwd_ref(x, gain, dy32)
     _, rstd = torch.ops.aten._fused_rms_norm(x, [x.shape[-1]], gain, rmsnorm.EPS)
-    rows.append(dict(
-        name="rmsnorm_bwd", route="cuda",
+    return dict(
+        name=name, shape=list(x.shape), route="cuda",
         source="operator_forge_torch/csrc/rmsnorm_bwd.cu",
-        replaces="operator_forge/tpu/demo.py:71",
-        fn=lambda: rmsnorm.rmsnorm_bwd(x, gain, dy),
-        plain=lambda: rmsnorm.rmsnorm_bwd_ref(x, gain, dy),
+        replaces="operator_forge/tpu/demo.py:71", reps=reps,
+        fn=call,
+        plain=lambda: rmsnorm.rmsnorm_bwd_ref(x, gain, dy32),
         library=lambda: torch.ops.aten._fused_rms_norm_backward(
-            dy, x, [x.shape[-1]], rstd, gain, [True, True]),
+            dy32, x, [x.shape[-1]], rstd, gain, [True, True]),
         err=torch.cat([(g - w).flatten() for g, w in zip(got, want)]),
         tolerance="rtol 1e-5, atol 1e-6 of max|dx| and of max|dgain|",
         ok=all(bool(((g - w).abs() <= 1e-6 * w.abs().max() + 1e-5 * w.abs()).all())
                for g, w in zip(got, want)),
+        fields={"dy": str(dy.dtype).removeprefix("torch.")},
         # read x and dy, write dx (gain and dgain beside them); some 11 f32
         # operations an element
-        bound=bound(3 * x.numel() * 4 + 2 * gain.numel() * 4, 11 * x.numel(),
-                    F32_FLOP_PER_S),
-    ))
+        bound=bound(x.numel() * (4 + dy.element_size() + 4) + 2 * gain.numel() * 4,
+                    11 * x.numel(), F32_FLOP_PER_S),
+    )
+
+
+def backward_rows(inputs: dict) -> list[dict]:
+    """The train step's kernels: the three backwards and cross entropy."""
+    rows = [attention_bwd_row(*inputs["attention_bwd"], "causal_attention_bwd")]
+
+    # the size of the cluster its cluster path runs on (none where a tree's
+    # backward takes none: this script run from an older checkout, to
+    # compare)
+    cluster = getattr(rmsnorm, "cluster", None)
+    print(json.dumps({"rmsnorm_bwd_cluster": cluster() if cluster else None}))
+    rows.append(rmsnorm_bwd_row(*inputs["rmsnorm_bwd"], "rmsnorm_bwd"))
 
     rows.append(mlp_bwd_row(*inputs["mlp_bwd"], "matmul_gelu_bwd"))
     rows.append(mlp_bwd_row(*inputs["mlp_bwd_wide"], "matmul_gelu_bwd_wide"))
@@ -836,7 +851,11 @@ def cell_rows() -> list[dict]:
     """Attention's backward at the benchmark's long rows, checked and timed
     as the main path's rows are, with its first launch's device time apart
     (``dq_device_ms``) beside that launch's bound: its three causal products
-    (S, dP, dQ) at the bf16 rate."""
+    (S, dP, dQ) at the bf16 rate.  Then RMSNorm's backward at the same
+    cells' rows, ``[b * s, n_heads * head_dim]`` with a bf16 dy, as
+    ``rmsnorm_to_bf16``'s backward runs it: each call takes the grid path
+    (its counter moves by one); beside it the same call on dy in f32
+    (``f32_dy_graph_ms``)."""
     g = torch.Generator().manual_seed(37)
     rows = []
     for name, (b, s, n_heads, hd) in CELL_SHAPES:
@@ -852,6 +871,20 @@ def cell_rows() -> list[dict]:
             rows64=True,
             dq_device_ms=kernel_device_ms(row["fn"], "causal_attention_bwd_dq_kernel"),
             dq_bound_ms=3 * 2 * hd * b * n_heads * s * (s + 1) // 2 / BF16_FLOP_PER_S * 1e3)
+        rows.append(row)
+    g_norm = torch.Generator().manual_seed(38)
+    for name, (b, s, n_heads, hd) in CELL_SHAPES:
+        x = (3.0 * torch.randn((b * s, n_heads * hd), generator=g_norm)).cuda()
+        dy = torch.randn(x.shape, generator=g_norm).cuda().bfloat16()
+        gain = (1.0 + 0.1 * torch.randn(x.shape[-1:], generator=g_norm)).cuda()
+        row = rmsnorm_bwd_row(x, gain, dy, f"rmsnorm_bwd_{name}", reps=20)
+        before = telemetry.value("kernels.rmsnorm_bwd.grid")
+        row["fn"]()
+        if telemetry.value("kernels.rmsnorm_bwd.grid") != before + 1:
+            fail(f"{row['name']} did not take the grid path")
+        row["fields"].update(grid=True)
+        row["extra"] = {"f32_dy": lambda x=x, gain=gain, dy32=dy.float():
+                        rmsnorm.rmsnorm_bwd(x, gain, dy32)}
         rows.append(row)
     return rows
 
@@ -1655,9 +1688,12 @@ def main() -> None:
     t_start = time.perf_counter()
     phase_card()
     if sys.argv[1:] == ["--cell-shapes"]:
-        # attention's backward at the benchmark's long rows alone
+        # attention's and RMSNorm's backward at the benchmark's long rows
+        # alone, and RMSNorm's backward at DemoConfig()'s shape beside them
         phase_build()
-        print(json.dumps({"cell_shapes": measure(cell_rows())}))
+        demo_inputs = main_path_inputs(demo.DemoConfig())["rmsnorm_bwd"]
+        rows = cell_rows() + [rmsnorm_bwd_row(*demo_inputs, "rmsnorm_bwd")]
+        print(json.dumps({"cell_shapes": measure(rows)}))
         return
     if sys.argv[1:] == ["--second-paths"]:
         # the second paths' rows alone, checked and timed, a failed check

@@ -257,11 +257,21 @@ def test_attention_bwd_stats_plane_matches_plain(cuda, b, s, n_heads, head_dim):
     assert bool(((stats[2].double() - big_d).abs() <= 2.0**-10 * scale).all())
 
 
+# the benchmark's train shapes, Pythia-1.4B's and GPT-2 medium's RMSNorm
+# rows, which take the grid path
+RMSNORM_BWD_CELL_SHAPES = [(8192, 2048), (16384, 1024)]
+
+
 # DemoConfig()'s [512, 128]; one row; 4096 rows; the widest rows; row
-# counts that do not divide among the cluster's blocks (37, 15, 7 rows)
+# counts that do not divide among the cluster's blocks (37, 15, 7 rows);
+# the cells' shapes (the grid path); row counts that do not divide among
+# the grid's blocks (8191), or too few for a grid (133); on the grid path
+# also rows of 4096 (Pythia-6.9B's) and 8192 columns, a row of 1000 that
+# leaves lanes idle, and rows of 128, a warp a row
 @pytest.mark.parametrize(
     "shape", [(512, 128), (3, 5, 100), (7, 1000), (1, 128), (4096, 128), (64, 16384), (37, 128),
-              (3, 16385), (256, 20480), (5, 40000)]
+              (3, 16385), (256, 20480), (5, 40000), *RMSNORM_BWD_CELL_SHAPES, (8191, 2048),
+              (133, 1024), (4099, 4096), (1000, 8192), (5000, 1000), (20000, 128)]
 )
 def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape):
     """dx and dgain within rtol 1e-5 and 1e-6 of each one's max: f32, sums
@@ -274,6 +284,64 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape):
     assert telemetry.value("kernels.rmsnorm_bwd") == before + 2 and same
     for g, w in zip(got, rmsnorm.rmsnorm_bwd_ref(x, gain, dy)):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6 * float(w.abs().max()))
+
+
+def _rmsnorm_bwd_inputs(shape, seed, device):
+    """x (scale 3), a bf16 dy and the gain of RMSNorm's backward."""
+    return (_normal(shape, seed, device, scale=3.0), _normal(shape, seed + 1, device).bfloat16(),
+            _normal(shape[-1:], seed + 2, device))
+
+
+@pytest.mark.parametrize("shape", RMSNORM_BWD_CELL_SHAPES)
+def test_rmsnorm_bwd_bf16_dy_gives_the_bits_of_widening_first(cuda, shape):
+    """The grid path reading a bf16 dy gives the bits of ``rmsnorm_bwd`` on
+    dy widened to f32 (the widening is exact, the rest the same launch),
+    and so does ``rmsnorm_to_bf16``'s backward; every call takes the grid
+    path."""
+    x, dy, gain = _rmsnorm_bwd_inputs(shape, 40, cuda)
+    before = telemetry.value("kernels.rmsnorm_bwd.grid")
+    got = rmsnorm.rmsnorm_bwd_bf16(x, gain, dy)
+    want = rmsnorm.rmsnorm_bwd(x, gain, dy.float())
+    live = x.clone().requires_grad_(), gain.clone().requires_grad_()
+    through = torch.autograd.grad(rmsnorm.rmsnorm_to_bf16(*live), live, dy)
+    assert telemetry.value("kernels.rmsnorm_bwd.grid") == before + 3
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(through, want))
+
+
+@pytest.mark.parametrize("shape", RMSNORM_BWD_CELL_SHAPES)
+def test_rmsnorm_bwd_grid_replays_give_the_same_bits(cuda, shape):
+    """Two replays of a captured call give the eager call's bits: the last
+    block of each launch sets the ticket counters back to 0 (dx and dgain
+    are spoilt between the replays, so a replay that wrote neither would
+    show)."""
+    x, dy, gain = _rmsnorm_bwd_inputs(shape, 43, cuda)
+    want = rmsnorm.rmsnorm_bwd_bf16(x, gain, dy)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = rmsnorm.rmsnorm_bwd_bf16(x, gain, dy)
+    for _ in range(2):
+        for t in got:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(rmsnorm._counters[x.device].abs().sum()) == 0
+
+
+def test_rmsnorm_bwd_grid_counts_the_cells_shapes_only(cuda):
+    """``kernels.rmsnorm_bwd.grid`` counts each call at the cells' shapes,
+    f32 or bf16 dy, and none at ``[7, 1000]`` (the cluster path); the
+    launch counter counts every call once."""
+    for shape, grid in [*((s, 1) for s in RMSNORM_BWD_CELL_SHAPES), ((7, 1000), 0)]:
+        x, dy, gain = _rmsnorm_bwd_inputs(shape, 46, cuda)
+        before = telemetry.value("kernels.rmsnorm_bwd.grid"), telemetry.value("kernels.rmsnorm_bwd")
+        rmsnorm.rmsnorm_bwd(x, gain, dy.float())
+        rmsnorm.rmsnorm_bwd_bf16(x, gain, dy)
+        assert telemetry.value("kernels.rmsnorm_bwd.grid") == before[0] + 2 * grid, shape
+        assert telemetry.value("kernels.rmsnorm_bwd") == before[1] + 2, shape
+        assert (rmsnorm.grid_plan(x.device.index, shape[0], shape[1]) is not None) == bool(grid)
 
 
 @pytest.mark.parametrize("m, k, n", MLP_SHAPES)
@@ -738,6 +806,17 @@ def test_rmsnorm_bwd_is_one_kernel(cuda):
     assert len(kernels) == 1, kernels
 
 
+def test_rmsnorm_to_bf16_bwd_is_one_kernel_at_the_cells_shape(cuda):
+    """At Pythia-1.4B's ``[8192, 2048]``, ``rmsnorm_to_bf16``'s backward
+    runs one CUDA kernel, the backward's: no cast of dy, no memset of the
+    scratch or the counters."""
+    x, dy, gain = _rmsnorm_bwd_inputs((8192, 2048), 49, cuda)
+    live = x.requires_grad_(), gain.requires_grad_()
+    y = rmsnorm.rmsnorm_to_bf16(*live)
+    kernels = _cuda_kernels(lambda: torch.autograd.grad(y, live, dy, retain_graph=True))
+    assert len(kernels) == 1 and "rmsnorm_bwd_kernel" in kernels[0], kernels
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows, vocab", [(512, 256), (64, 32000)])
 def test_cross_entropy_is_one_kernel_each_way(cuda, rows, vocab, dtype):
@@ -1065,7 +1144,8 @@ def _slices_close(got, want_of, rows: int, check) -> None:
 
 
 @pytest.mark.parametrize("name", ["matmul_gelu", "matmul_gelu_bwd", "rmsnorm", "rmsnorm_bwd",
-                                  "cross_entropy", "rmsnorm_bf16", "cross_entropy_bf16"])
+                                  "cross_entropy", "rmsnorm_bf16", "cross_entropy_bf16",
+                                  "rmsnorm_bwd_grid"])
 def test_kernel_past_2_31_values(cuda, name):
     """A tensor of more than 2**31 values, whose offsets need 64 bits: the
     kernel's rows (or values) at both ends within the tolerances above of
@@ -1099,11 +1179,21 @@ def test_kernel_past_2_31_values(cuda, name):
         got = rmsnorm.rmsnorm_to_bf16(x, gain)
         _slices_close(got, lambda part: rmsnorm.rmsnorm_ref(x[part], gain).to(torch.bfloat16), 4096,
                       lambda a, b: _within_bf16_ulp(a, b) or pytest.fail("beyond 1 bf16 ulp"))
-    elif name == "rmsnorm_bwd":
-        x = 3 * torch.randn(2**31 // 16384 + 1, 16384, generator=g, device="cuda")
+    elif name in ("rmsnorm_bwd", "rmsnorm_bwd_grid"):
+        # the cluster path at rows of 16384; the grid path at rows of 8192
+        # with a bf16 dy, its blocks in waves
+        d = 16384 if name == "rmsnorm_bwd" else 8192
+        x = 3 * torch.randn(2**31 // d + 1, d, generator=g, device="cuda")
         dy = torch.randn(x.shape, generator=g, device="cuda")
-        gain = torch.randn(16384, generator=g, device="cuda")
-        dx, dgain = rmsnorm.rmsnorm_bwd(x, gain, dy)
+        gain = torch.randn(d, generator=g, device="cuda")
+        if name == "rmsnorm_bwd":
+            dx, dgain = rmsnorm.rmsnorm_bwd(x, gain, dy)
+        else:
+            dy = dy.bfloat16()
+            before = telemetry.value("kernels.rmsnorm_bwd.grid")
+            dx, dgain = rmsnorm.rmsnorm_bwd_bf16(x, gain, dy)
+            assert telemetry.value("kernels.rmsnorm_bwd.grid") == before + 1
+            dy = dy.float()
         want_dx = rmsnorm.rmsnorm_bwd_ref(x[-64:], gain, dy[-64:])[0]
         torch.testing.assert_close(dx[-64:], want_dx, rtol=1e-5, atol=1e-6 * float(want_dx.abs().max()))
         # the plain dgain over every row, 4096 rows at a time, the chunks'

@@ -387,6 +387,23 @@ class TestWrappersOnCpu:
         with pytest.raises(ValueError):
             rmsnorm.rmsnorm_bwd(x, gain[:32], dy)
 
+    def test_rmsnorm_bwd_bf16(self):
+        """The bf16-dy entry on CPU tensors is the plain version on dy
+        widened, launches nothing, and refuses an f32 dy or another shape."""
+        x = torch.from_numpy(_normal((4, 16, 64), 36, scale=3.0))
+        dy = torch.from_numpy(_normal((4, 16, 64), 37)).bfloat16()
+        gain = torch.linspace(0.5, 1.5, 64)
+        before = _launches("rmsnorm")
+        got = rmsnorm.rmsnorm_bwd_bf16(x, gain, dy)
+        want = rmsnorm.rmsnorm_bwd_ref(x, gain, dy.float())
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert _launches("rmsnorm") == before
+        for bad in (dy.float(), dy[..., :32]):
+            with pytest.raises(ValueError):
+                rmsnorm.rmsnorm_bwd_bf16(x, gain, bad)
+        with pytest.raises(ValueError):
+            rmsnorm.rmsnorm_bwd_bf16(x.to("meta"), gain, dy)
+
     @pytest.mark.parametrize("on_meta", ["x", "gain", "dy", "all"])
     def test_rmsnorm_bwd_rejects_a_device_neither_cpu_nor_cuda(self, on_meta):
         """A tensor on ``meta`` raises: the plain version serves CPU tensors
