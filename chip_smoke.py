@@ -32,12 +32,12 @@ Phases, each of which exits non-zero on a failed check:
       the parent's route (the cuBLAS product alone, and with PyTorch's
       GELU after it), from a CUDA graph; print one JSON line per
       kernel, then the kernels ranked by device time over their PyTorch
-      call's, and the RMSNorm backward's cluster size.  The ring step and
-      its backward are checked at every mask case at several shapes (the
-      backward at each edge of its tiled kernel) and timed at every block
-      the ring phases launch them at (``RING_TIMED``, ``RING_BWD_TIMED``),
-      each beside SDPA (its backward op) under the same mask, each bound
-      counting the pairs the mask leaves.  The kernels that only shapes off
+      call's.  The ring step and its backward are checked at every mask
+      case at several shapes (the backward at each edge of its tiled
+      kernel) and timed at every block the ring phases launch them at
+      (``RING_TIMED``, ``RING_BWD_TIMED``), each beside SDPA (its
+      backward op) under the same mask, each bound counting the pairs the
+      mask leaves.  The kernels that only shapes off
       the main path reach (attention's stream kernels at heads of 256 and
       at Llama 2 7B's [1, 4096, 32, 128], the ring step at a block of 2048
       keys) are checked and timed the same way (``second_path_rows``).
@@ -93,7 +93,7 @@ Phases, each of which exits non-zero on a failed check:
       first launch's device time apart under the profiler (after (h')'s
       profiled calls: the profiler sets its clock at its first session) and
       that launch's bound; then RMSNorm's backward at the same cells' rows
-      ([8192, 2048], [16384, 1024]) with a bf16 dy, on its grid path, beside
+      ([8192, 2048], [16384, 1024]) with a bf16 dy, beside
       PyTorch's fused RMSNorm backward; on a ``cell_shapes`` line with no
       launches (``--cell-shapes`` adds (c)'s RMSNorm backward row at
       ``DemoConfig()``'s shape);
@@ -543,12 +543,6 @@ def rmsnorm_bwd_row(x, gain, dy, name: str, reps: int = 100) -> dict:
 def backward_rows(inputs: dict) -> list[dict]:
     """The train step's kernels: the three backwards and cross entropy."""
     rows = [attention_bwd_row(*inputs["attention_bwd"], "causal_attention_bwd")]
-
-    # the size of the cluster its cluster path runs on (none where a tree's
-    # backward takes none: this script run from an older checkout, to
-    # compare)
-    cluster = getattr(rmsnorm, "cluster", None)
-    print(json.dumps({"rmsnorm_bwd_cluster": cluster() if cluster else None}))
     rows.append(rmsnorm_bwd_row(*inputs["rmsnorm_bwd"], "rmsnorm_bwd"))
 
     rows.append(mlp_bwd_row(*inputs["mlp_bwd"], "matmul_gelu_bwd"))
@@ -853,9 +847,8 @@ def cell_rows() -> list[dict]:
     (``dq_device_ms``) beside that launch's bound: its three causal products
     (S, dP, dQ) at the bf16 rate.  Then RMSNorm's backward at the same
     cells' rows, ``[b * s, n_heads * head_dim]`` with a bf16 dy, as
-    ``rmsnorm_to_bf16``'s backward runs it: each call takes the grid path
-    (its counter moves by one); beside it the same call on dy in f32
-    (``f32_dy_graph_ms``)."""
+    ``rmsnorm_to_bf16``'s backward runs it; beside it the same call on dy
+    in f32 (``f32_dy_graph_ms``)."""
     g = torch.Generator().manual_seed(37)
     rows = []
     for name, (b, s, n_heads, hd) in CELL_SHAPES:
@@ -878,11 +871,6 @@ def cell_rows() -> list[dict]:
         dy = torch.randn(x.shape, generator=g_norm).cuda().bfloat16()
         gain = (1.0 + 0.1 * torch.randn(x.shape[-1:], generator=g_norm)).cuda()
         row = rmsnorm_bwd_row(x, gain, dy, f"rmsnorm_bwd_{name}", reps=20)
-        before = telemetry.value("kernels.rmsnorm_bwd.grid")
-        row["fn"]()
-        if telemetry.value("kernels.rmsnorm_bwd.grid") != before + 1:
-            fail(f"{row['name']} did not take the grid path")
-        row["fields"].update(grid=True)
         row["extra"] = {"f32_dy": lambda x=x, gain=gain, dy32=dy.float():
                         rmsnorm.rmsnorm_bwd(x, gain, dy32)}
         rows.append(row)

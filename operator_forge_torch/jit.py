@@ -13,7 +13,7 @@ The leaves choose the device, as every kernel wrapper of the port does:
   captured once.  The first call of a signature copies the arguments into
   static buffers, calls ``fn`` ``WARMUP_CALLS`` times on the device's
   capture stream (which builds the kernels, sets up cuBLAS's handle and
-  workspace for that stream, makes cross entropy's ticket counter and sets
+  workspace for that stream, makes the kernels' ticket counters and sets
   up NCCL's communicators, none of which a capture may do) and captures
   one call on that stream into a ``torch.cuda.CUDAGraph``.  Every call
   then copies its arguments into the buffers (one ``torch._foreach_copy_``

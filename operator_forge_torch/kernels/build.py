@@ -9,7 +9,10 @@ loads the library already there.  The build runs at
 first use, under a file lock, so processes that start together build once.
 ``ptxas``'s report of each kernel's registers and spills is kept beside the
 library (``resources`` reads it).  Every C entry returns
-``cudaGetLastError()``; ``check`` raises on a non-zero status.
+``cudaGetLastError()``; ``check`` raises on a non-zero status.  Kernels
+whose last block sums what the others left (cross entropy's mean,
+RMSNorm's backward) take integer ticket counters on the device:
+``counters`` makes each source's once a device.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
@@ -122,13 +127,19 @@ def _kernel_name(symbol: str) -> str:
 def resources(name: str, csrc: Path = CSRC) -> dict:
     """Each kernel of ``<csrc>/<name>.cu``'s built library: its registers a
     thread and the bytes it spills to local memory, stores and loads, from
-    ``ptxas``'s report."""
-    found, kernel = {}, None
+    ``ptxas``'s report (a device function a kernel calls rather than
+    inlines has its own spills there, which are not the kernel's)."""
+    found, kernel, symbol, owner = {}, None, None, None
     for line in report(library_path(name, csrc)).read_text().splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            kernel = _kernel_name(entry.group(1))
+            symbol = owner = entry.group(1)
+            kernel = _kernel_name(symbol)
             found[kernel] = {}
+        elif properties := re.search(r"Function properties for (\w+)", line):
+            owner = properties.group(1)
+        elif owner != symbol:
+            continue
         elif kernel and (spill := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             found[kernel].update(spill_stores=int(spill.group(1)), spill_loads=int(spill.group(2)))
         elif kernel and (used := re.search(r"Used (\d+) registers", line)):
@@ -157,3 +168,18 @@ def check(lib: ctypes.CDLL, status: int, what: str) -> None:
     if status != 0:
         message = lib.of_error_string(status).decode()
         raise RuntimeError(f"{what}: CUDA error {status} ({message})")
+
+
+@functools.cache
+def counters(name: str, device: torch.device, n: int) -> torch.Tensor:
+    """The ``n`` int32 ticket counters of ``csrc/<name>.cu``'s kernels on
+    ``device``: 0 between launches, as each launch's last block sets them
+    back.  Made at the first call for the device, with ``torch.zeros``,
+    which a CUDA graph's capture may not hold: raises if that first call
+    comes during a capture."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"{name}'s first launch on a device cannot be captured into a CUDA graph: "
+            "call it once outside the capture"
+        )
+    return torch.zeros(n, dtype=torch.int32, device=device)

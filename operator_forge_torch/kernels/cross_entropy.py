@@ -31,11 +31,6 @@ from .. import telemetry
 from . import build
 
 
-# each device's ticket counter for the forward's last block (0 between
-# launches); made at the first launch on the device
-_counters: dict[torch.device, torch.Tensor] = {}
-
-
 def _rows(logits: torch.Tensor, targets: torch.Tensor):
     return logits.reshape(-1, logits.shape[-1]), targets.reshape(-1)
 
@@ -87,18 +82,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _counter(device: torch.device) -> torch.Tensor:
-    counter = _counters.get(device)
-    if counter is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "cross_entropy's first launch on a device cannot be captured into a CUDA "
-                "graph: call it once outside the capture"
-            )
-        counter = _counters[device] = torch.zeros(1, dtype=torch.int32, device=device)
-    return counter
-
-
 def _check(logits: torch.Tensor, targets: torch.Tensor, what: str) -> bool:
     """Validate f32 or bf16 ``logits [..., V]`` and integer ``targets
     [...]``; True where both lie on the CPU (the plain version), False for
@@ -140,7 +123,7 @@ def cross_entropy_fwd(
     loss = torch.empty((), dtype=torch.float32, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
-        counter = _counter(x.device)
+        counter = build.counters("cross_entropy", x.device, 1)
         status = _entry(lib, "cross_entropy_fwd", x)(
             x.data_ptr(), t.data_ptr(), t.element_size(), nll.data_ptr(), lse.data_ptr(),
             loss.data_ptr(), counter.data_ptr(), n_rows, n_cols,

@@ -16,39 +16,30 @@ design.
 The backward is the transpose of the same lines.  With ``xhat = x / norm``
 and ``u = dy * gain``: ``dx = (u - xhat * mean(u * xhat)) / norm`` per row
 and ``dgain = sum over rows of dy * xhat``, all in f32.  Its kernel is CUDA
-C++, ``csrc/rmsnorm_bwd.cu``, one launch on one of two paths:
-
-- the grid path, for rows of a multiple of 8 columns up to 8192 with
-  16-byte aligned tensors and enough rows that every block of a grid
-  filling the card gets some (the benchmark's train shapes, ``[8192,
-  2048]`` and ``[16384, 1024]``; ``grid_plan`` says where): blocks of
-  contiguous rows on every SM, a thread holding 8 fixed columns of each
-  row in registers (x and dy read once, dx written once) and its columns'
-  dgain partial in registers, in row order.  Each block stores its partial
-  to a scratch from PyTorch's allocator (under ``jit``'s capture, the
-  graph's pool); the blocks draw integer tickets in groups, the last of
-  each group sums its group's partials in block order, and the last group
-  sums the groups' in group order and writes dgain.  The counters are
-  made once a device with ``torch.zeros`` before any capture, and the last
-  block sets each back to 0.  ``kernels.rmsnorm_bwd.grid`` counts these
-  calls;
-- the cluster path, every other shape (``DemoConfig()``'s ``[512, 128]``
-  among them): one thread-block cluster of 16 blocks (``cluster()``),
-  which writes dx row by row and sums dgain's columns first in each
-  block's shared memory and then across the cluster through distributed
-  shared memory (a window of columns at a time where a row's sums would
-  not fit, or would chain more than 1024 rows), with no scratch.
+C++, ``csrc/rmsnorm_bwd.cu``, one launch at every shape: a grid of blocks
+of contiguous rows, as many as fill the card where the rows allow (fewer
+for a few rows, more in waves for very many), each block writing dx and
+leaving its rows' dgain partial, summed in row order, in its row of a
+scratch from PyTorch's allocator (under ``jit``'s capture, the graph's
+pool).  The blocks draw integer tickets in groups: the last of each group
+sums its group's partials in block order, and the last group sums the
+groups' in group order and writes dgain.  Rows of a multiple of 8
+columns up to 8192 with 16-byte aligned tensors (the benchmark's
+``[8192, 2048]`` and ``[16384, 1024]``, ``DemoConfig()``'s ``[512,
+128]``) are held in registers, 8 fixed columns a thread, read once;
+other rows are strided by a block's threads in three passes.  The
+counters (``build.counters``) are made once a device before any capture,
+and the last block sets each back to 0.
 
 No float atomics: every sum runs in a fixed order, and a call repeats bit
-for bit.  ``rmsnorm_to_bf16``'s backward, with no ``model`` group (the
-only route the benchmark's cells take), hands its bf16 ``dy`` to the grid
-path as it is, which widens it exactly in registers: the bits of
-``rmsnorm_bwd`` on ``dy`` widened first, in one launch and no cast.  Where
-the grid path does not take the shape, or with a ``model`` group, it
-widens ``dy`` first.  The public ``rmsnorm_bwd`` takes f32 ``dy`` only.
-The source's note has the bound and the design.  ``rmsnorm`` and
-``rmsnorm_to_bf16`` tie the two directions together as autograd
-``Function``s.
+for bit.  ``rmsnorm_bwd`` takes an f32 ``dy`` and ``rmsnorm_bwd_bf16`` a
+bf16 one, which the kernel widens exactly in registers: the bits of
+``rmsnorm_bwd`` on ``dy`` widened first, in one launch and no cast.
+``rmsnorm_to_bf16``'s backward hands its bf16 ``dy`` to
+``rmsnorm_bwd_bf16``, or with a ``model`` group widens it, all-reduces it
+and calls ``rmsnorm_bwd``.  The source's note has the bound and the
+design.  ``rmsnorm`` and ``rmsnorm_to_bf16`` tie the two directions
+together as autograd ``Function``s.
 """
 
 from __future__ import annotations
@@ -63,10 +54,6 @@ from .. import telemetry
 from . import build
 
 EPS = 1e-6
-
-# each device's ticket counters for the backward's grid path (0 between
-# launches); made at the first launch on the device
-_counters: dict[torch.device, torch.Tensor] = {}
 
 
 def rmsnorm_ref(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
@@ -137,85 +124,53 @@ def _fwd_library() -> ctypes.CDLL:
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
     lib = build.library("rmsnorm_bwd")
-    lib.rmsnorm_bwd_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    lib.rmsnorm_bwd_f32.restype = ctypes.c_int
-    for entry in (lib.rmsnorm_bwd_grid_f32, lib.rmsnorm_bwd_grid_bf16):
+    for entry in (lib.rmsnorm_bwd_f32, lib.rmsnorm_bwd_bf16):
         entry.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         entry.restype = ctypes.c_int
-    lib.rmsnorm_bwd_grid_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    lib.rmsnorm_bwd_grid_plan.restype = ctypes.c_int
-    for entry in (lib.rmsnorm_bwd_cluster, lib.rmsnorm_bwd_grid_counters):
-        entry.argtypes = []
-        entry.restype = ctypes.c_int
+    lib.rmsnorm_bwd_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.rmsnorm_bwd_plan.restype = ctypes.c_int
+    lib.rmsnorm_bwd_counters.argtypes = []
+    lib.rmsnorm_bwd_counters.restype = ctypes.c_int
     return lib
 
 
-def cluster() -> int:
-    """The blocks of the thread-block cluster the backward's cluster path
-    runs on (builds the kernel)."""
-    return _bwd_library().rmsnorm_bwd_cluster()
-
-
 @functools.cache
-def grid_plan(device: int, n_rows: int, d: int) -> tuple[int, int] | None:
-    """``(blocks, groups)`` of the backward's grid path for rows ``[n_rows,
-    d]`` on CUDA device ``device``, or None where the cluster path takes
-    the shape (builds the kernel)."""
+def _plan(device: int, n_rows: int, d: int, aligned: bool) -> tuple[int, int]:
+    """``(blocks, groups)`` of the backward's launch for rows ``[n_rows,
+    d]`` on CUDA device ``device``, with its five tensors all 16-byte
+    aligned or not (builds the kernel)."""
     lib = _bwd_library()
-    plan = (ctypes.c_int * 2)()
+    out = (ctypes.c_int * 2)()
     with torch.cuda.device(device):
-        status = lib.rmsnorm_bwd_grid_plan(n_rows, d, plan)
-    build.check(lib, status, "rmsnorm_bwd_grid_plan")
-    return (plan[0], plan[1]) if plan[0] else None
+        status = lib.rmsnorm_bwd_plan(n_rows, d, int(aligned), out)
+    build.check(lib, status, "rmsnorm_bwd_plan")
+    return out[0], out[1]
 
 
-def _counter(device: torch.device) -> torch.Tensor:
-    counter = _counters.get(device)
-    if counter is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "rmsnorm_bwd's first launch on a device cannot be captured into a CUDA "
-                "graph: call it once outside the capture"
-            )
-        n = _bwd_library().rmsnorm_bwd_grid_counters()
-        counter = _counters[device] = torch.zeros(n, dtype=torch.int32, device=device)
-    return counter
-
-
-def _plan(x: torch.Tensor, gain: torch.Tensor, dy: torch.Tensor) -> tuple[int, int] | None:
-    """The grid path's plan for these contiguous CUDA tensors, or None where
-    it does not take their shape or an alignment."""
+def _bwd(x: torch.Tensor, gain: torch.Tensor, dy: torch.Tensor):
+    """``(dx, dgain)`` for a dy of x's shape: the plain version on dy
+    widened for CPU tensors, one launch of the kernel (dy f32 or bf16) for
+    contiguous tensors on one CUDA device."""
+    if _check(x, gain, "rmsnorm_bwd") and dy.device.type == "cpu":
+        return rmsnorm_bwd_ref(x, gain, dy.float())
+    if dy.device != x.device or not dy.is_contiguous():
+        raise ValueError("rmsnorm_bwd's kernel takes contiguous tensors on one CUDA device")
     d = x.shape[-1]
-    plan = grid_plan(x.device.index, x.numel() // d, d)
-    return None if plan is None or any(t.data_ptr() % 16 for t in (x, gain, dy)) else plan
-
-
-def _launch(x: torch.Tensor, gain: torch.Tensor, dy: torch.Tensor, plan: tuple[int, int] | None):
-    """``(dx, dgain)`` from one launch on contiguous CUDA tensors of one
-    device: the grid path on ``plan`` (dy f32 or bf16), else the cluster
-    path (dy f32; one launch a window of columns, counted once)."""
-    d = x.shape[-1]
+    n_rows = x.numel() // d
     dx = torch.empty_like(x)
     dgain = torch.empty_like(gain)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, gain, dy, dx, dgain))
+    blocks, groups = _plan(x.device.index, n_rows, d, aligned)
+    scratch = torch.empty((blocks + groups, d), dtype=torch.float32, device=x.device)
     lib = _bwd_library()
+    entry = lib.rmsnorm_bwd_bf16 if dy.dtype == torch.bfloat16 else lib.rmsnorm_bwd_f32
+    counters = build.counters("rmsnorm_bwd", x.device, lib.rmsnorm_bwd_counters())
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if plan is None:
-            status = lib.rmsnorm_bwd_f32(x.data_ptr(), gain.data_ptr(), dy.data_ptr(),
-                                         dx.data_ptr(), dgain.data_ptr(), x.numel() // d, d,
-                                         stream)
-        else:
-            blocks, groups = plan
-            scratch = torch.empty((blocks + groups, d), dtype=torch.float32, device=x.device)
-            entry = (lib.rmsnorm_bwd_grid_bf16 if dy.dtype == torch.bfloat16
-                     else lib.rmsnorm_bwd_grid_f32)
-            status = entry(x.data_ptr(), gain.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                           dgain.data_ptr(), scratch.data_ptr(), _counter(x.device).data_ptr(),
-                           x.numel() // d, d, stream)
+        status = entry(x.data_ptr(), gain.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                       dgain.data_ptr(), scratch.data_ptr(), counters.data_ptr(), n_rows, d,
+                       torch.cuda.current_stream().cuda_stream)
     build.check(lib, status, "rmsnorm_bwd")
     telemetry.count("kernels.rmsnorm_bwd")
-    if plan is not None:
-        telemetry.count("kernels.rmsnorm_bwd.grid")
     return dx, dgain
 
 
@@ -224,35 +179,25 @@ def rmsnorm_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(dx, dgain)`` of ``rmsnorm(x, gain)`` for the output gradient
     ``dy`` (f32, x's shape): the plain version for CPU tensors, one launch
-    of the CUDA kernel for CUDA tensors (the grid path where it takes the
-    shape, else the cluster path; see the source)."""
+    of the CUDA kernel for CUDA tensors."""
     if dy.dtype != torch.float32 or dy.shape != x.shape:
         raise ValueError(
             f"rmsnorm_bwd takes dy f32 {tuple(x.shape)}, got {dy.dtype} {tuple(dy.shape)}"
         )
-    if _check(x, gain, "rmsnorm_bwd") and dy.device.type == "cpu":
-        return rmsnorm_bwd_ref(x, gain, dy)
-    if dy.device != x.device or not dy.is_contiguous():
-        raise ValueError("rmsnorm_bwd's kernel takes contiguous tensors on one CUDA device")
-    return _launch(x, gain, dy, _plan(x, gain, dy))
+    return _bwd(x, gain, dy)
 
 
 def rmsnorm_bwd_bf16(
     x: torch.Tensor, gain: torch.Tensor, dy: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``rmsnorm_bwd(x, gain, dy.float())`` for a bf16 ``dy``, to the bit:
-    one launch of the grid path reading ``dy`` as it is where that path
-    takes the shape (and ``dy`` is a contiguous CUDA tensor beside x), else
-    ``dy`` widened and ``rmsnorm_bwd``."""
+    the plain version on dy widened for CPU tensors, one launch of the
+    CUDA kernel reading ``dy`` as it is for CUDA tensors."""
     if dy.dtype != torch.bfloat16 or dy.shape != x.shape:
         raise ValueError(
             f"rmsnorm_bwd_bf16 takes dy bf16 {tuple(x.shape)}, got {dy.dtype} {tuple(dy.shape)}"
         )
-    if not _check(x, gain, "rmsnorm_bwd") and dy.device == x.device and dy.is_contiguous():
-        plan = _plan(x, gain, dy)
-        if plan is not None:
-            return _launch(x, gain, dy, plan)
-    return rmsnorm_bwd(x, gain, dy.to(torch.float32, memory_format=torch.contiguous_format))
+    return _bwd(x, gain, dy)
 
 
 class RMSNorm(torch.autograd.Function):
@@ -298,7 +243,7 @@ class RMSNormToBF16(torch.autograd.Function):
     def backward(ctx, dy: torch.Tensor):
         x, gain = ctx.saved_tensors
         if ctx.model is None:
-            return (*rmsnorm_bwd_bf16(x, gain, dy), None)
+            return (*rmsnorm_bwd_bf16(x, gain, dy.contiguous()), None)
         dy = dy.to(torch.float32, memory_format=torch.contiguous_format)
         dist.all_reduce(dy, group=ctx.model)
         return (*rmsnorm_bwd(x, gain, dy), None)

@@ -57,7 +57,9 @@ def test_every_source_of_the_port_names_its_headers(name):
 
 def test_resources_reads_each_kernels_registers_and_spills(csrc, monkeypatch):
     """``ptxas``'s report kept beside a library: each entry function's
-    registers and spill bytes, by its symbol where no ``c++filt`` is found."""
+    registers and spill bytes, by its symbol where no ``c++filt`` is found;
+    a device function's own properties (one a kernel calls) are not its
+    kernel's."""
     monkeypatch.setattr(build, "BUILD_DIR", csrc / "_build")
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
     report = build.report(build.library_path("k", csrc))
@@ -67,6 +69,8 @@ def test_resources_reads_each_kernels_registers_and_spills(csrc, monkeypatch):
         "ptxas info    : Function properties for _Z1aPf\n"
         "    8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
         "ptxas info    : Used 80 registers, used 1 barriers, 8 bytes cumulative stack size\n"
+        "ptxas info    : Function properties for _Z6calledPf\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Compiling entry function '_Z1bPf' for 'sm_90a'\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Used 219 registers, used 1 barriers\n"

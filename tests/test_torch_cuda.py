@@ -19,13 +19,14 @@ import torch
 import torch.distributed as dist
 from torch.autograd import DeviceType
 from torch.distributed.device_mesh import init_device_mesh
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from operator_forge_torch import demo, telemetry
 from operator_forge_torch.entry import dryrun_multichip, entry, train_entry
 from operator_forge_torch.jit import WARMUP_CALLS, jit, nbytes
 from operator_forge_torch.kernels import (
-    attention, bf16_ulp, carry_close, gelu, grads_close, mlp, rmsnorm, run_twice, step_tolerance,
-    rows_close, within_floored_ulps, within_ulps, wrapper_call,
+    attention, bf16_ulp, build, carry_close, gelu, grads_close, mlp, rmsnorm, run_twice,
+    step_tolerance, rows_close, within_floored_ulps, within_ulps, wrapper_call,
 )
 from operator_forge_torch.kernels import cross_entropy as ce
 from operator_forge_torch.kernels import ring_attention as ra
@@ -258,16 +259,19 @@ def test_attention_bwd_stats_plane_matches_plain(cuda, b, s, n_heads, head_dim):
 
 
 # the benchmark's train shapes, Pythia-1.4B's and GPT-2 medium's RMSNorm
-# rows, which take the grid path
+# rows, which fill the card's grid
 RMSNORM_BWD_CELL_SHAPES = [(8192, 2048), (16384, 1024)]
+# beside them, a small grid (DemoConfig()'s [512, 128], 7 rows of 1000)
+# and strided rows (an odd width, a width past 8192)
+RMSNORM_BWD_BITS_SHAPES = [*RMSNORM_BWD_CELL_SHAPES, (512, 128), (7, 1000), (3, 16385), (5, 40000)]
 
 
-# DemoConfig()'s [512, 128]; one row; 4096 rows; the widest rows; row
-# counts that do not divide among the cluster's blocks (37, 15, 7 rows);
-# the cells' shapes (the grid path); row counts that do not divide among
-# the grid's blocks (8191), or too few for a grid (133); on the grid path
-# also rows of 4096 (Pythia-6.9B's) and 8192 columns, a row of 1000 that
-# leaves lanes idle, and rows of 128, a warp a row
+# DemoConfig()'s [512, 128]; one row; 4096 rows; the widest rows; strided
+# rows of odd widths (100, 16385) and past 8192; few rows, each block one
+# step (37, 15, 7, 133 rows); the cells' shapes; row counts that do not
+# divide among the grid's blocks (8191); rows of 4096 (Pythia-6.9B's) and
+# 8192 columns, a row of 1000 that leaves lanes idle, and rows of 128, a
+# warp a row
 @pytest.mark.parametrize(
     "shape", [(512, 128), (3, 5, 100), (7, 1000), (1, 128), (4096, 128), (64, 16384), (37, 128),
               (3, 16385), (256, 20480), (5, 40000), *RMSNORM_BWD_CELL_SHAPES, (8191, 2048),
@@ -292,24 +296,23 @@ def _rmsnorm_bwd_inputs(shape, seed, device):
             _normal(shape[-1:], seed + 2, device))
 
 
-@pytest.mark.parametrize("shape", RMSNORM_BWD_CELL_SHAPES)
+@pytest.mark.parametrize("shape", RMSNORM_BWD_BITS_SHAPES)
 def test_rmsnorm_bwd_bf16_dy_gives_the_bits_of_widening_first(cuda, shape):
-    """The grid path reading a bf16 dy gives the bits of ``rmsnorm_bwd`` on
-    dy widened to f32 (the widening is exact, the rest the same launch),
-    and so does ``rmsnorm_to_bf16``'s backward; every call takes the grid
-    path."""
+    """The kernel reading a bf16 dy gives the bits of ``rmsnorm_bwd`` on dy
+    widened to f32 (the widening is exact, the rest the same launch), and
+    so does ``rmsnorm_to_bf16``'s backward; each call is one launch."""
     x, dy, gain = _rmsnorm_bwd_inputs(shape, 40, cuda)
-    before = telemetry.value("kernels.rmsnorm_bwd.grid")
+    before = telemetry.value("kernels.rmsnorm_bwd")
     got = rmsnorm.rmsnorm_bwd_bf16(x, gain, dy)
     want = rmsnorm.rmsnorm_bwd(x, gain, dy.float())
     live = x.clone().requires_grad_(), gain.clone().requires_grad_()
     through = torch.autograd.grad(rmsnorm.rmsnorm_to_bf16(*live), live, dy)
-    assert telemetry.value("kernels.rmsnorm_bwd.grid") == before + 3
+    assert telemetry.value("kernels.rmsnorm_bwd") == before + 3
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert all(torch.equal(a, b) for a, b in zip(through, want))
 
 
-@pytest.mark.parametrize("shape", RMSNORM_BWD_CELL_SHAPES)
+@pytest.mark.parametrize("shape", RMSNORM_BWD_BITS_SHAPES)
 def test_rmsnorm_bwd_grid_replays_give_the_same_bits(cuda, shape):
     """Two replays of a captured call give the eager call's bits: the last
     block of each launch sets the ticket counters back to 0 (dx and dgain
@@ -327,21 +330,38 @@ def test_rmsnorm_bwd_grid_replays_give_the_same_bits(cuda, shape):
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert int(rmsnorm._counters[x.device].abs().sum()) == 0
+    n = rmsnorm._bwd_library().rmsnorm_bwd_counters()
+    assert int(build.counters("rmsnorm_bwd", x.device, n).abs().sum()) == 0
 
 
-def test_rmsnorm_bwd_grid_counts_the_cells_shapes_only(cuda):
-    """``kernels.rmsnorm_bwd.grid`` counts each call at the cells' shapes,
-    f32 or bf16 dy, and none at ``[7, 1000]`` (the cluster path); the
-    launch counter counts every call once."""
-    for shape, grid in [*((s, 1) for s in RMSNORM_BWD_CELL_SHAPES), ((7, 1000), 0)]:
+class _AtenOps(TorchDispatchMode):
+    """Records the name of every PyTorch operation run inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+def test_rmsnorm_bwd_is_one_launch_a_call_with_no_cast(cuda):
+    """At the cells' shapes and at ``[7, 1000]``, with f32 or bf16 dy, each
+    call is one launch, counted once by ``kernels.rmsnorm_bwd``, and the
+    only PyTorch operations it runs make its outputs and its scratch: a
+    bf16 dy costs no cast."""
+    for shape in [*RMSNORM_BWD_CELL_SHAPES, (7, 1000)]:
         x, dy, gain = _rmsnorm_bwd_inputs(shape, 46, cuda)
-        before = telemetry.value("kernels.rmsnorm_bwd.grid"), telemetry.value("kernels.rmsnorm_bwd")
-        rmsnorm.rmsnorm_bwd(x, gain, dy.float())
-        rmsnorm.rmsnorm_bwd_bf16(x, gain, dy)
-        assert telemetry.value("kernels.rmsnorm_bwd.grid") == before[0] + 2 * grid, shape
-        assert telemetry.value("kernels.rmsnorm_bwd") == before[1] + 2, shape
-        assert (rmsnorm.grid_plan(x.device.index, shape[0], shape[1]) is not None) == bool(grid)
+        dy32 = dy.float()
+        for call in (lambda: rmsnorm.rmsnorm_bwd(x, gain, dy32),
+                     lambda: rmsnorm.rmsnorm_bwd_bf16(x, gain, dy)):
+            call()  # (a device's first call also makes the counters)
+            before = telemetry.value("kernels.rmsnorm_bwd")
+            with _AtenOps() as ops:
+                call()
+            assert telemetry.value("kernels.rmsnorm_bwd") == before + 1, shape
+            assert set(ops.names) <= {"empty", "empty_like"}, (shape, ops.names)
 
 
 @pytest.mark.parametrize("m, k, n", MLP_SHAPES)
@@ -1180,8 +1200,8 @@ def test_kernel_past_2_31_values(cuda, name):
         _slices_close(got, lambda part: rmsnorm.rmsnorm_ref(x[part], gain).to(torch.bfloat16), 4096,
                       lambda a, b: _within_bf16_ulp(a, b) or pytest.fail("beyond 1 bf16 ulp"))
     elif name in ("rmsnorm_bwd", "rmsnorm_bwd_grid"):
-        # the cluster path at rows of 16384; the grid path at rows of 8192
-        # with a bf16 dy, its blocks in waves
+        # strided rows of 16384; rows of 8192 held in registers with a bf16
+        # dy; both grids' blocks in waves
         d = 16384 if name == "rmsnorm_bwd" else 8192
         x = 3 * torch.randn(2**31 // d + 1, d, generator=g, device="cuda")
         dy = torch.randn(x.shape, generator=g, device="cuda")
@@ -1190,9 +1210,9 @@ def test_kernel_past_2_31_values(cuda, name):
             dx, dgain = rmsnorm.rmsnorm_bwd(x, gain, dy)
         else:
             dy = dy.bfloat16()
-            before = telemetry.value("kernels.rmsnorm_bwd.grid")
+            before = telemetry.value("kernels.rmsnorm_bwd")
             dx, dgain = rmsnorm.rmsnorm_bwd_bf16(x, gain, dy)
-            assert telemetry.value("kernels.rmsnorm_bwd.grid") == before + 1
+            assert telemetry.value("kernels.rmsnorm_bwd") == before + 1
             dy = dy.float()
         want_dx = rmsnorm.rmsnorm_bwd_ref(x[-64:], gain, dy[-64:])[0]
         torch.testing.assert_close(dx[-64:], want_dx, rtol=1e-5, atol=1e-6 * float(want_dx.abs().max()))
