@@ -94,7 +94,10 @@ Phases, each of which exits non-zero on a failed check:
       profiled calls: the profiler sets its clock at its first session) and
       that launch's bound; then RMSNorm's backward at the same cells' rows
       ([8192, 2048], [16384, 1024]) with a bf16 dy, beside
-      PyTorch's fused RMSNorm backward; on a ``cell_shapes`` line with no
+      PyTorch's fused RMSNorm backward; then the MLP's two fused products
+      at the same cells' (M, K, N) (``MLP_CELL_SHAPES``), beside their
+      bound as the benchmark counts it and cuBLASLt's product with a GELU
+      epilogue; on a ``cell_shapes`` line with no
       launches (``--cell-shapes`` adds (c)'s RMSNorm backward row at
       ``DemoConfig()``'s shape);
   (i) print the ring phases' launches by block, mask and head width, then
@@ -820,6 +823,8 @@ def second_path_rows() -> list[dict]:
 # the benchmark's long rows: Pythia-1.4B's and GPT-2 medium's attention
 # backward at their cells' [batch, seq, heads, head_dim]
 CELL_SHAPES = (("pythia_1_4b", (4, 2048, 16, 128)), ("gpt2_medium", (16, 1024, 16, 64)))
+# the same cells' MLP products, (tokens M, d_model K, d_ff N)
+MLP_CELL_SHAPES = (("pythia_1_4b", (8192, 2048, 8192)), ("gpt2_medium", (16384, 1024, 4096)))
 
 
 def kernel_device_ms(call, kernel: str, calls: int = 10) -> float | None:
@@ -874,6 +879,36 @@ def cell_rows() -> list[dict]:
         row["extra"] = {"f32_dy": lambda x=x, gain=gain, dy32=dy.float():
                         rmsnorm.rmsnorm_bwd(x, gain, dy32)}
         rows.append(row)
+    return rows + mlp_cell_rows()
+
+
+def mlp_cell_rows() -> list[dict]:
+    """The MLP's two fused products at the benchmark cells' shapes,
+    checked and timed as (c)'s rows, each beside its bound as the
+    benchmark counts it (``portbench/counts.py::mlp_kernel_call``: inputs
+    read once, outputs written once, h_pre kept; the product's 2 M N K at
+    the bf16 rate, the epilogue's work not counted) and cuBLASLt's product
+    with a GELU epilogue (``torch._addmm_activation``; the backward's is the
+    same product, ``dy @ w2ᵀ``, with the GELU rather than its slope) as the
+    yardstick; ``wgmma`` says whether the call took the wgmma design."""
+    g = torch.Generator().manual_seed(39)
+    rows = []
+    for name, (m, k, n) in MLP_CELL_SHAPES:
+        x = torch.randn((m, k), generator=g).cuda().bfloat16()
+        w1 = (3.0 / math.sqrt(k) * torch.randn((k, n), generator=g)).cuda().bfloat16()
+        w2 = (1.0 / math.sqrt(k) * torch.randn((n, k), generator=g)).cuda().bfloat16()
+        h_pre = (3.0 * torch.randn((m, n), generator=g)).cuda().bfloat16()
+        zero = torch.zeros(n, dtype=torch.bfloat16, device="cuda")
+        fwd = mlp_row(x, w1, f"matmul_gelu_{name}", reps=20)
+        bwd = mlp_bwd_row(x, w2, h_pre, f"matmul_gelu_bwd_{name}", reps=20)
+        bwd["library"] = lambda x=x, w2=w2, zero=zero: torch._addmm_activation(
+            zero, x, w2.t(), use_gelu=True)
+        for row, counter in ((fwd, "matmul_gelu"), (bwd, "matmul_gelu_bwd")):
+            row["bound"] = bound(2 * (m * k + k * n + 2 * m * n), 2 * m * n * k, BF16_FLOP_PER_S)
+            before = telemetry.value(f"kernels.{counter}.wgmma")
+            row["fn"]()
+            row["fields"] = {"wgmma": telemetry.value(f"kernels.{counter}.wgmma") == before + 1}
+            rows.append(row)
     return rows
 
 
@@ -1676,8 +1711,9 @@ def main() -> None:
     t_start = time.perf_counter()
     phase_card()
     if sys.argv[1:] == ["--cell-shapes"]:
-        # attention's and RMSNorm's backward at the benchmark's long rows
-        # alone, and RMSNorm's backward at DemoConfig()'s shape beside them
+        # attention's and RMSNorm's backward and the MLP's products at the
+        # benchmark's shapes alone, and RMSNorm's backward at DemoConfig()'s
+        # shape beside them
         phase_build()
         demo_inputs = main_path_inputs(demo.DemoConfig())["rmsnorm_bwd"]
         rows = cell_rows() + [rmsnorm_bwd_row(*demo_inputs, "rmsnorm_bwd")]

@@ -122,6 +122,17 @@ using of::lo_of;
 using of::mma;
 using of::pack;
 using of::smem_u32;
+// wgmma's fences and descriptors, mbarriers and TMA, shared with mlp.cu
+using of::bar_expect;
+using of::bar_init;
+using of::bar_wait;
+using of::encode_tiled;
+using of::EncodeTiled;
+using of::tma_load;
+using of::wg_commit;
+using of::wg_desc;
+using of::wg_fence;
+using of::wg_wait;
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -1600,20 +1611,6 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// until at most N committed groups are in flight
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // the compiler may not move reads of a wgmma's accumulator above its wait
 template <int kN>
 __device__ __forceinline__ void wg_keep(float (&d)[kN][4]) {
@@ -1629,79 +1626,12 @@ __device__ __forceinline__ float (&flat(float (&d)[kN][4]))[4 * kN] {
   return *reinterpret_cast<float(*)[4 * kN]>(&d[0][0]);
 }
 
-// the descriptor of a swizzled tile at p: leading and stride byte offsets
-__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lead, uint32_t stride) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
-         ((uint64_t)(stride >> 4) << 32) | (1ull << 62);
-}
-
-// ---- TMA: tiles copied by the card's copy engine, behind mbarriers ----
-
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// the barrier's one arrival, and the bytes its copies bring
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-}
-
-// a box of `map` at the coordinates c (innermost first) into dst, counted on bar
-template <int kDims>
-__device__ __forceinline__ void tma_load(bf16* dst, const CUtensorMap& map, const int (&c)[kDims],
-                                         uint64_t* bar) {
-  const uint64_t at = reinterpret_cast<uint64_t>(&map);
-  if constexpr (kDims == 5)
-    asm volatile(
-        "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-        " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(smem_u32(dst)),
-        "l"(at), "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]), "r"(c[4]), "r"(smem_u32(bar))
-        : "memory");
-  else
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-        " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-        "l"(at), "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]), "r"(smem_u32(bar))
-        : "memory");
-}
-
 // Tensor maps of qkv [b, s, 3, h, head_dim] and dO [b, s, h, head_dim],
 // boxes of 64 columns by 64 rows of one head, 128-byte swizzled: the
 // swizzled tiles above.  Columns past head_dim and rows past s read as 0.
 struct TensorMaps {
   CUtensorMap qkv, dout;
 };
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
 
 // needs head_dim a multiple of 8 and 16-byte aligned bases (`vec`)
 cudaError_t tensor_maps(TensorMaps* maps, const bf16* qkv, const bf16* dout, int b, int s,

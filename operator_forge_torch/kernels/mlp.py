@@ -14,7 +14,11 @@ operands as the reference casts them:
 Each product accumulates in f32 and rounds once, then the GELU or its slope
 (``kernels/gelu.py``'s f32 formulas) rounds once more: the unfused
 composition's two roundings.  The kernels are CUDA C++, ``csrc/mlp.cu``;
-the source's note has their bound and design.  The plain versions are
+the source's note has their bound and their two designs: calls on
+16-byte aligned rows of at least 512 tile steps take the persistent wgmma
+design, which ``kernels.matmul_gelu.wgmma`` and
+``kernels.matmul_gelu_bwd.wgmma`` count (the C side's ``mlp_wgmma`` rule,
+asked after each launch), every other call the mma.sync design.  The plain versions are
 ``torch.matmul`` followed by ``gelu.gelu_tanh_ref`` or
 ``gelu.gelu_tanh_bwd_ref``.
 
@@ -110,6 +114,9 @@ def matmul_gelu(x: torch.Tensor, w1: torch.Tensor,
         )
     build.check(lib, status, "matmul_gelu")
     telemetry.count("kernels.matmul_gelu")
+    if lib.mlp_wgmma(x.data_ptr(), w1.data_ptr(), h.data_ptr(),
+                     h_pre.data_ptr() if keep_pre else None, x.numel() // k, n, k):
+        telemetry.count("kernels.matmul_gelu.wgmma")
     return h, h_pre
 
 
@@ -137,6 +144,9 @@ def matmul_gelu_bwd(dy: torch.Tensor, w2: torch.Tensor, h_pre: torch.Tensor) -> 
         )
     build.check(lib, status, "matmul_gelu_bwd")
     telemetry.count("kernels.matmul_gelu_bwd")
+    if lib.mlp_wgmma(dy.data_ptr(), w2.data_ptr(), h_pre.data_ptr(), dh_pre.data_ptr(),
+                     dy.numel() // d, n, d):
+        telemetry.count("kernels.matmul_gelu_bwd.wgmma")
     return dh_pre
 
 
@@ -147,6 +157,8 @@ def _library() -> ctypes.CDLL:
         entry.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                                   ctypes.c_void_p]
         entry.restype = ctypes.c_int
+    lib.mlp_wgmma.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    lib.mlp_wgmma.restype = ctypes.c_int
     return lib
 
 

@@ -124,10 +124,14 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape):
 # ranks (d_ff / 2), the wide step's M = 4096 (the large tiles), one row;
 # odd widths (element by element), a depth of 1, ragged edges on every
 # side of a small and of a large tile, a depth of many stages, and 2188
-# column tiles
+# column tiles; the benchmark cells' (Pythia-1.4B's, GPT-2 medium's) and a
+# ragged shape past them (the last row and column tiles part outside)
 MLP_SHAPES = [(512, 128, 512), (512, 128, 256), (4096, 128, 512), (1, 128, 512), (91, 72, 200),
               (3, 1, 5), (1000, 130, 77), (130, 200, 33), (3000, 72, 1000), (64, 4096, 96),
-              (7, 16, 70000)]
+              (7, 16, 70000), (8192, 2048, 8192), (16384, 1024, 4096), (8191, 2048, 8184)]
+# the shapes of MLP_SHAPES that take the wgmma design (csrc/mlp.cu's
+# mlp_wgmma): aligned operands and at least 512 tile steps
+MLP_WGMMA_SHAPES = {(7, 16, 70000), (8192, 2048, 8192), (16384, 1024, 4096), (8191, 2048, 8184)}
 
 
 def _bf16_at(t: torch.Tensor, offset: int) -> torch.Tensor:
@@ -157,13 +161,17 @@ def test_matmul_gelu_kernel_matches_plain(cuda, m, k, n):
     at 2**-8 of the max (only the order of the f32 sum differs); h within
     ``mlp.gelu_close`` of the plain GELU of that h_pre.  One
     launch a call, the same bits from two, and the served call (no h_pre)
-    gives h's bits."""
+    gives h's bits.  ``kernels.matmul_gelu.wgmma`` moves by one a call at
+    the shapes that take the wgmma design, and not at the others."""
     x, w1 = _mlp_fwd_inputs(m, k, n, cuda)
     before = telemetry.value("kernels.matmul_gelu")
+    wgmma = telemetry.value("kernels.matmul_gelu.wgmma")
     (h, h_pre), same = run_twice(lambda: mlp.matmul_gelu(x, w1))
     served, none = mlp.matmul_gelu(x, w1, keep_pre=False)
     torch.cuda.synchronize()
     assert telemetry.value("kernels.matmul_gelu") == before + 3 and same and none is None
+    took = 3 if (m, k, n) in MLP_WGMMA_SHAPES else 0
+    assert telemetry.value("kernels.matmul_gelu.wgmma") == wgmma + took
     assert h.shape == h_pre.shape == (m, n) and torch.equal(served, h)
     assert within_floored_ulps(h_pre, mlp.matmul_gelu_ref(x, w1)[1], 1)
     assert mlp.gelu_close(h, h_pre)
@@ -173,7 +181,9 @@ def test_matmul_gelu_kernel_matches_plain(cuda, m, k, n):
 @pytest.mark.parametrize("m, k, n", [(91, 72, 200), (512, 128, 512), (3000, 72, 1000)])
 def test_mlp_kernels_on_unaligned_rows(cuda, kernel, m, k, n):
     """Every operand 2 bytes past a 16-byte boundary: staged element by
-    element, with the tolerances of the aligned tests."""
+    element (the mma.sync design: TMA cannot describe them, and the wgmma
+    counter does not move), with the tolerances of the aligned tests."""
+    wgmma = telemetry.value(f"kernels.{kernel}.wgmma")
     if kernel == "matmul_gelu":
         x, w1 = _mlp_fwd_inputs(m, k, n, cuda, offset=1)
         h, h_pre = mlp.matmul_gelu(x, w1)
@@ -182,6 +192,7 @@ def test_mlp_kernels_on_unaligned_rows(cuda, kernel, m, k, n):
     else:
         inputs = _mlp_bwd_inputs(m, k, n, cuda, offset=1)
         assert within_floored_ulps(mlp.matmul_gelu_bwd(*inputs), mlp.matmul_gelu_bwd_ref(*inputs), 2)
+    assert telemetry.value(f"kernels.{kernel}.wgmma") == wgmma
 
 
 # the backward's first launch on long rows (64-row tiles, two passes): the
@@ -370,12 +381,17 @@ def test_matmul_gelu_bwd_kernel_matches_plain(cuda, m, k, n):
     floored at 2**-8 of the max: the product dy @ w2ᵀ sums in another
     order, which moves its rounding by one ulp, and the slope (up to 1.13)
     scales that ulp before the second rounding, which can then land two
-    ulps of dh_pre apart.  One launch a call, the same bits from two."""
+    ulps of dh_pre apart.  One launch a call, the same bits from two;
+    ``kernels.matmul_gelu_bwd.wgmma`` counts the calls at the shapes that
+    take the wgmma design."""
     dy, w2, h_pre = _mlp_bwd_inputs(m, k, n, cuda)
     before = telemetry.value("kernels.matmul_gelu_bwd")
+    wgmma = telemetry.value("kernels.matmul_gelu_bwd.wgmma")
     (got,), same = run_twice(lambda: mlp.matmul_gelu_bwd(dy, w2, h_pre))
     torch.cuda.synchronize()
     assert telemetry.value("kernels.matmul_gelu_bwd") == before + 2 and same and got.shape == (m, n)
+    took = 2 if (m, k, n) in MLP_WGMMA_SHAPES else 0
+    assert telemetry.value("kernels.matmul_gelu_bwd.wgmma") == wgmma + took
     assert within_floored_ulps(got, mlp.matmul_gelu_bwd_ref(dy, w2, h_pre), 2)
 
 
@@ -877,19 +893,22 @@ def test_mlp_runs_no_kernel_between_its_products(cuda):
 
 def test_mlp_kernels_replay_from_a_cuda_graph(cuda):
     """A CUDA graph of both kernels, replayed twice, gives the eager
-    outputs' bits each time."""
-    x, w1 = _mlp_fwd_inputs(512, 128, 512, cuda)
-    dy, w2, h_pre = _mlp_bwd_inputs(512, 128, 512, cuda)
-    eager = (*mlp.matmul_gelu(x, w1), mlp.matmul_gelu_bwd(dy, w2, h_pre))
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        replayed = (*mlp.matmul_gelu(x, w1), mlp.matmul_gelu_bwd(dy, w2, h_pre))
-    for _ in range(2):
-        for t in replayed:
-            t.zero_()
-        graph.replay()
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(replayed, eager))
+    outputs' bits each time: at DemoConfig()'s shape (the mma.sync design)
+    and at GPT-2 medium's cell's (the wgmma design, its tensor maps captured
+    as launch parameters)."""
+    for m, k, n in ((512, 128, 512), (16384, 1024, 4096)):
+        x, w1 = _mlp_fwd_inputs(m, k, n, cuda)
+        dy, w2, h_pre = _mlp_bwd_inputs(m, k, n, cuda)
+        eager = (*mlp.matmul_gelu(x, w1), mlp.matmul_gelu_bwd(dy, w2, h_pre))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = (*mlp.matmul_gelu(x, w1), mlp.matmul_gelu_bwd(dy, w2, h_pre))
+        for _ in range(2):
+            for t in replayed:
+                t.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(replayed, eager)), (m, k, n)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
